@@ -9,7 +9,8 @@ with
 
 Tolerances are relative to the largest plain-version entry: 1e-12 in
 float64 and 1e-5 in float32 (the kernels contract multiply-adds into
-FMAs and sum in another order than the batched plain version).
+FMAs and sum in another order than the batched plain version).  The two
+stencil kernels share their arithmetic and must agree bit for bit.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 
 import topopteval_tpu_torch as tt
 from topopteval_tpu_torch.ops import element_kernels as ek
+from topopteval_tpu_torch.ops import stencil
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +105,81 @@ def test_operator_on_cuda_matches_cpu(cuda, element_type):
         out[device] = op.matvec(torch.as_tensor(u, device=device)).cpu()
     scale = float(out["cpu"].abs().max())
     assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-12 * scale
+
+
+def _stencil_inputs(dims, dtype, device, simp, seed=0):
+    nx, ny, nz = dims
+    rng = np.random.default_rng(seed)
+    op = tt.StructuredStiffnessOperator.build(
+        nx, ny, nz, (0, 0, 0), (0.5 * nx, 0.4 * ny, 0.3 * nz),
+        *tt.lame_parameters(1.0, 0.3),
+        escale=rng.uniform(0.1, 1.0, (nz, ny, nx)) if simp else None,
+        dtype=dtype, device=device)
+    u = torch.as_tensor(rng.standard_normal(op.n_dofs), dtype=dtype,
+                        device=device)
+    return u, op.escale, op.ke, dims
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("simp", [False, True], ids=["uniform", "simp"])
+@pytest.mark.parametrize("dims", [(7, 5, 3), (1, 1, 1), (40, 9, 6)])
+@pytest.mark.parametrize("kernel", ["plane", "window"])
+def test_stencil_kernel_matches_plain_version(cuda, kernel, dims, simp,
+                                              dtype):
+    """Odd dims: every boundary case, ragged blocks and ragged tiles."""
+    args = _stencil_inputs(dims, dtype, cuda, simp)
+    name = f"stencil_{kernel}"
+    before = dict(stencil.LAUNCHES)
+    out = stencil.stencil_matvec(*args, kernel=kernel)
+    torch.cuda.synchronize()
+    # a CUDA tensor never reaches the plain version: one launch per call
+    assert stencil.LAUNCHES[name] == before[name] + 1
+    assert sum(stencil.LAUNCHES.values()) == sum(before.values()) + 1
+    ref = stencil.stencil_matvec_reference(*args)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stencil_kernels_agree_bit_for_bit(cuda, dtype):
+    args = _stencil_inputs((37, 6, 9), dtype, cuda, simp=True)
+    a = stencil.stencil_matvec(*args, kernel="plane")
+    b = stencil.stencil_matvec(*args, kernel="window")
+    assert torch.equal(a, b)
+
+
+def test_stencil_kernel_choice_follows_the_environment(cuda, monkeypatch):
+    args = _stencil_inputs((6, 4, 2), torch.float64, cuda, simp=False)
+    monkeypatch.setenv("TOPOPT_STENCIL_KERNEL", "window")
+    before = stencil.LAUNCHES["stencil_window"]
+    stencil.stencil_matvec(*args)
+    assert stencil.LAUNCHES["stencil_window"] == before + 1
+
+
+def test_stencil_wrapper_rejects_bad_inputs(cuda):
+    u, esc, ke, dims = _stencil_inputs((6, 4, 2), torch.float64, cuda, True)
+    with pytest.raises(TypeError):
+        stencil.stencil_matvec(u.float(), esc, ke, dims)
+    with pytest.raises(ValueError, match="on cpu"):
+        stencil.stencil_matvec(u, esc, ke.cpu(), dims)
+    with pytest.raises(ValueError, match="contiguous"):
+        stencil.stencil_matvec(u, esc, ke.t(), dims)
+    with pytest.raises(ValueError, match="DOFs"):
+        stencil.stencil_matvec(u[3:], esc, ke, dims)
+
+
+def test_multigrid_solve_on_cuda_matches_cpu(cuda):
+    mesh = tt.generate_grid_tet(16, 8, 4, (0, 0, 0), (16.0, 8.0, 4.0))
+    config = tt.SolverConfig(method="cg", preconditioner="multigrid",
+                             tolerance=1e-10, verbose=False)
+    out = {}
+    for device in ("cpu", "cuda"):
+        problem = tt.cantilever_beam(mesh, dtype=torch.float64,
+                                     device=device)
+        stencil.reset_launch_counts()
+        out[device] = tt.solve_system(problem, config)
+        assert (stencil.LAUNCHES["stencil_plane"] > 0) == (device == "cuda")
+    assert out["cuda"].method == "cg" and out["cuda"].converged
+    assert out["cuda"].iterations == out["cpu"].iterations
+    assert abs(out["cuda"].energy - out["cpu"].energy) \
+        <= 1e-10 * out["cpu"].energy

@@ -29,6 +29,10 @@ from topopteval_tpu_torch.ops import elements as port_elements
 from topopteval_tpu_torch.utils import set_verbosity
 
 set_verbosity(False)
+# these tests work on small tensors: one intra-op thread each, so that
+# test processes running side by side do not fight over the cores (torch's
+# thread pool spins at its barriers when the machine is oversubscribed)
+torch.set_num_threads(1)
 
 RTOL = 1e-10
 

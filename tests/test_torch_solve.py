@@ -40,6 +40,10 @@ from topopteval_tpu_torch.fem.solvers import direct_solve
 from topopteval_tpu_torch.io.vtu import VTUFile
 
 tt.set_verbosity(False)
+# these tests work on small tensors: one intra-op thread each, so that
+# test processes running side by side do not fight over the cores (torch's
+# thread pool spins at its barriers when the machine is oversubscribed)
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CG_KW = dict(method="cg", preconditioner="block_diagonal", tolerance=1e-10,
@@ -190,8 +194,10 @@ def test_cantilever_auto_selects_direct_below_50k(beam_tet_path):
 
 
 @pytest.mark.parametrize("kwargs,item", [
+    # the scale-2 state below carries no ``structured_info``: multigrid
+    # then needs the block-ELL hierarchy
     (dict(method="cg", preconditioner="multigrid", verbose=False),
-     "items 5-6"),
+     "item 6"),
     (dict(method="minres", verbose=False), "item 9"),
     (dict(method="cg", verbose=True), "item 9"),
 ])
@@ -247,6 +253,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 import sys
 import numpy as np, torch
 import topopteval_tpu_torch as tt
+import topopteval_tpu_torch.fem.structured, topopteval_tpu_torch.fem.multigrid
+import topopteval_tpu_torch.ops.stencil, topopteval_tpu_torch.models.problems
 tt.set_verbosity(False)
 mesh = tt.generate_grid_tet(6, 2, 1, (0, 0, 0), (6.0, 2.0, 1.0))
 p = tt.setup_problem(mesh, dtype=torch.float64, device="cpu")
@@ -255,6 +263,9 @@ tt.apply_fixed_boundary(p, tt.nodes_at_plane(mesh, 0, 0.0))
 tt.apply_force(p, tt.nodes_at_plane(mesh, 0, 6.0), [0.0, 0.0, -1.0])
 r = tt.solve_system(p, tt.SolverConfig(method="cg", verbose=False,
                     preconditioner="block_diagonal", tolerance=1e-10))
+assert r.converged and r.method == "cg", r
+r = tt.solve_system(p, tt.SolverConfig(method="cg", verbose=False,
+                    preconditioner="multigrid", tolerance=1e-10))
 assert r.converged and r.method == "cg", r
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "topopteval_tpu" or m.startswith("topopteval_tpu."))

@@ -4,7 +4,8 @@ Strain-energy evaluation of topology-optimized structures: VTU mesh
 import, linear-elastic FEM with SIMP density penalization, a matrix-free
 stiffness operator whose element applies are hand-written CUDA kernels
 (csrc/), block-Jacobi PCG with float64 dots and float64-certified
-mixed-precision refinement, stress recovery and VTU export.
+mixed-precision refinement, geometric multigrid PCG on generated boxes
+over a hand-written stencil kernel, stress recovery and VTU export.
 
 The public names mirror ``topopteval_tpu``'s facade, so each function
 has a counterpart of the same name there.  Entry points take an explicit
@@ -37,10 +38,17 @@ from .fem.bc import (DirichletBC, extract_surface, free_mask_from_bcs,
                      nodes_at_plane, select_nodes_by_plane)
 
 # solver config
-from .config import SolverConfig
+from .config import (SolverConfig, adaptive_config, large_general_config,
+                     large_symmetric_config, memory_efficient_config)
 
-# mesh generators
-from .models import generate_grid_hex, generate_grid_tet
+# mesh generators and canonical problems
+from .models import (cantilever_beam, generate_grid_hex, generate_grid_tet,
+                     refined_beam, simp_beam)
+
+# structured multigrid
+from .fem.multigrid import (MultigridPreconditioner,
+                            build_structured_multigrid)
+from .fem.structured import StructuredStiffnessOperator
 
 # terminal helpers
 from .utils import (print_data, print_error, print_info, print_success,
@@ -59,7 +67,12 @@ __all__ = [
     "solve_system", "solve_system_simp", "save_result", "load_result",
     "select_nodes_by_plane", "nodes_at_plane",
     "extract_surface", "DirichletBC", "free_mask_from_bcs",
-    "SolverConfig", "generate_grid_hex", "generate_grid_tet",
+    "SolverConfig", "large_symmetric_config", "large_general_config",
+    "memory_efficient_config", "adaptive_config",
+    "generate_grid_hex", "generate_grid_tet", "refined_beam",
+    "cantilever_beam", "simp_beam",
+    "StructuredStiffnessOperator", "build_structured_multigrid",
+    "MultigridPreconditioner",
     "print_info", "print_error", "print_warning", "print_success",
     "print_data", "set_verbosity",
 ]

@@ -8,12 +8,14 @@ constraints, the material, the compute dtype and the device; the solve
 runs the matrix-free operator on that device.
 
 Routes of ``solve_system`` in this package: ``direct`` (host sparse LU),
-block-Jacobi PCG (``cg``) with float64 dots, float32 PCG inside float64
+block-Jacobi PCG (``cg``) with float64 dots, multigrid PCG
+(``preconditioner="multigrid"``) on generated tet4 boxes through the
+stencil hierarchy of fem/multigrid.py, float32 PCG inside float64
 host-residual refinement when ``tolerance < 1e-6``, and the
-backward-error gate with its direct fallback.  The multigrid
-preconditioner, multi-device solves, the other Krylov methods and the
-``verbose=True`` robust ladder are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+backward-error gate with its direct fallback.  Multigrid on any other
+mesh (the block-ELL hierarchy), multi-device solves, the other Krylov
+methods and the ``verbose=True`` robust ladder are not ported yet and
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -114,6 +116,8 @@ class Problem:
     mode: str = "otf"
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cuda"))
+    #: (fingerprint, operator, preconditioner) of the last multigrid build
+    _mg_cache: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         if self.quad_order is None:
@@ -174,9 +178,17 @@ def problem_from_numpy(state: dict, device="cuda",
 
     Keys: ``coords`` [N,3], ``conn`` [C,k], ``element_type``, ``lam`` and
     ``mu`` [C], ``f`` [3N], ``fixed_dofs`` (a list of DOF-id arrays, one
-    per constraint), and optionally ``density`` [C] and ``quad_order``.
+    per constraint), and optionally ``density`` [C], ``quad_order`` and
+    ``structured_info`` (a generated box's provenance, which selects the
+    stencil multigrid route).
     """
     mesh = Mesh(state["coords"], state["conn"], state["element_type"])
+    info = state.get("structured_info")
+    if info is not None:
+        mesh.structured_info = {
+            "dims": tuple(int(d) for d in info["dims"]),
+            "lo": tuple(float(v) for v in info["lo"]),
+            "hi": tuple(float(v) for v in info["hi"])}
     problem = setup_problem(mesh, dtype=dtype, device=device)
     if state.get("quad_order") is not None:
         problem.quad_order = int(state["quad_order"])
@@ -305,8 +317,66 @@ def _default_config() -> SolverConfig:
                         tolerance=1e-10, max_iterations=20000, verbose=False)
 
 
-def _backward_error(op: StiffnessOperator, f_dev: torch.Tensor,
-                    u: torch.Tensor):
+def _material_fingerprint(problem: Problem) -> tuple:
+    return (problem.lam.tobytes(), problem.mu.tobytes(),
+            tuple(bc.fixed_dofs.tobytes() for bc in problem.bcs),
+            str(problem.dtype), str(problem.device))
+
+
+def _get_multigrid(problem: Problem):
+    """(op, mg) for preconditioner='multigrid', cached per material+BCs.
+
+    Generated structured tet4 boxes (mesh.structured_info) with a per-hex
+    constant material ride the stencil hierarchy (fem/structured.py,
+    fem/multigrid.py).  Anything else (imported meshes, hex8, a material
+    that varies inside a hex, dims that do not coarsen 2:1) needs the
+    block-ELL hierarchy, which is not ported yet: that raises, it never
+    solves another way."""
+    key = _material_fingerprint(problem)
+    cached = problem._mg_cache
+    if cached is not None and cached[0] == key:
+        return cached[1], cached[2]
+
+    from .fem.multigrid import build_structured_multigrid
+    mesh = problem.mesh
+    mask = free_mask_from_bcs(problem.n_dofs, problem.bcs)
+    info = mesh.structured_info
+    op = mg = None
+    why = "the mesh is not a generated tet4 box"
+    if info is not None and mesh.element_type == "tet4":
+        nx, ny, nz = info["dims"]
+        lam_e = np.broadcast_to(problem.lam, (mesh.n_cells,))
+        mu_e = np.broadcast_to(problem.mu, (mesh.n_cells,))
+        # per-hex-constant material (uniform or SIMP on the hex grid)?
+        mu_h = mu_e.reshape(-1, 6)
+        per_hex = (np.ptp(mu_h, axis=1).max() == 0
+                   and np.ptp((lam_e / np.maximum(mu_e, 1e-300))) < 1e-12)
+        why = "the material varies inside a hex"
+        if per_hex:
+            iref = int(np.argmax(mu_e))
+            lam0, mu0 = float(lam_e[iref]), float(mu_e[iref])
+            # hex order from models.beams._hex_conn is x-major (ix slowest);
+            # the stencil operator wants a z-major [nz, ny, nx] grid
+            esc = (mu_h[:, 0] / mu0).reshape(nx, ny, nz).transpose(2, 1, 0)
+            if np.all(esc == 1.0):
+                esc = None
+            try:
+                _, op, mg = build_structured_multigrid(
+                    nx, ny, nz, info["lo"], info["hi"], lam0, mu0,
+                    free_mask=mask, escale=esc, dtype=problem.dtype,
+                    device=problem.device)
+            except ValueError as e:   # e.g. odd dims: no 2:1 coarsening
+                why = str(e)
+    if op is None:
+        raise NotImplementedError(
+            f"multigrid: the structured hierarchy does not apply ({why}) "
+            "and the block-ELL hierarchy for general meshes is not ported "
+            "yet (ROADMAP Queue A item 6)")
+    problem._mg_cache = (key, op, mg)
+    return op, mg
+
+
+def _backward_error(op, f_dev: torch.Tensor, u: torch.Tensor):
     """Normwise backward error eta = ||f-Au|| / (||A||·||u|| + ||f||) with
     a fresh matvec and an 8-step power estimate of ||A||_2.
 
@@ -333,6 +403,7 @@ class _HostRefineSystem:
     for mixed-precision refinement on the fp32 routes."""
 
     def __init__(self, problem: Problem):
+        t0 = time.perf_counter()
         mask_np = free_mask_from_bcs(problem.n_dofs, problem.bcs)
         C = problem.mesh.n_cells
         self._host = HostFineOperator(
@@ -342,9 +413,16 @@ class _HostRefineSystem:
             mask_np, problem.quad_order)
         self.mask = mask_np
         self.n = problem.n_dofs
+        #: host seconds: the geometry tables, and the residual matvecs
+        #: (the first of which also builds the Ke batch)
+        self.build_seconds = time.perf_counter() - t0
+        self.matvec_seconds = 0.0
 
     def matvec64(self, x64: np.ndarray) -> np.ndarray:
-        return self._host.matvec64(np.asarray(x64)[:self.n])
+        t0 = time.perf_counter()
+        y = self._host.matvec64(np.asarray(x64)[:self.n])
+        self.matvec_seconds += time.perf_counter() - t0
+        return y
 
 
 def _refined_generic(system, inner, f64, tol, maxiter, device, x0_64=None,
@@ -395,7 +473,7 @@ def _refined_generic(system, inner, f64, tol, maxiter, device, x0_64=None,
     return x64, total, rn, rn <= eps, history, passes
 
 
-def _build_preconditioner(op: StiffnessOperator, config: SolverConfig):
+def _build_preconditioner(op, config: SolverConfig):
     name = config.preconditioner
     if name == "none":
         return None
@@ -417,11 +495,8 @@ def _check_ported(config: SolverConfig, method: str, devices) -> None:
     if method in ("minres", "gmres", "bicgstab"):
         raise NotImplementedError(
             f"method={method!r} is not ported yet (ROADMAP Queue A item 9)")
-    if method == "cg" and config.preconditioner == "multigrid":
-        raise NotImplementedError(
-            "the multigrid preconditioner is not ported yet (ROADMAP "
-            "Queue A items 5-6)")
-    if method == "cg" and config.verbose:
+    if (method == "cg" and config.verbose
+            and config.preconditioner != "multigrid"):
         raise NotImplementedError(
             "the verbose=True robust solver ladder is not ported yet "
             "(ROADMAP Queue A item 9); pass verbose=False for plain PCG")
@@ -442,9 +517,12 @@ def solve_system(problem: Problem,
                   else "cg")
     _check_ported(config, method, devices)
 
+    M_mg = None
     with timer.phase("build_operator"):
-        op = problem.build_operator(with_bc=True)
-    dmesh = op.dmesh
+        if config.preconditioner == "multigrid" and method == "cg":
+            op, M_mg = _get_multigrid(problem)
+        else:
+            op = problem.build_operator(with_bc=True)
     n = problem.n_dofs
     dtype, device = problem.dtype, problem.device
     f_dev = torch.as_tensor(problem.f, dtype=dtype,
@@ -475,7 +553,8 @@ def solve_system(problem: Problem,
         u = _host_direct()
         niter, rnorm, conv = 1, 0.0, True
     else:
-        M = _build_preconditioner(op, config)
+        # multigrid takes this plain-PCG path whatever ``verbose`` says
+        M = M_mg if M_mg is not None else _build_preconditioner(op, config)
         if want_refine:
             system = _HostRefineSystem(problem)
             f64 = np.asarray(problem.f, np.float64)[:n] * system.mask
@@ -494,6 +573,9 @@ def solve_system(problem: Problem,
                 record_history=config.history, dtype=dtype)
             u = torch.as_tensor(u64, dtype=dtype, device=device)
             energy64 = 0.5 * float(u64 @ f64)
+            for name in ("build_seconds", "matvec_seconds"):
+                timer.records[f"refine_host_{name}"] = PhaseRecord(
+                    f"refine_host_{name}", getattr(system, name))
         else:
             x0_dev = None
             if x0 is not None:
@@ -542,18 +624,24 @@ def solve_system(problem: Problem,
     # control) supersedes the working-dtype device evaluation
     energy = energy64 if energy64 is not None else float(op.energy(u))
     return _finish_result(problem, u, energy, method, niter, rnorm, conv,
-                          solve_time, history, timer, dmesh=dmesh, u64=u64,
+                          solve_time, history, timer,
+                          dmesh=getattr(op, "dmesh", None), u64=u64,
                           refinement_passes=passes)
 
 
 def _finish_result(problem: Problem, u, energy: float, method: str,
                    niter: int, rnorm: float, conv: bool,
                    solve_time: float, history, timer: PhaseTimer,
-                   dmesh, u64=None, refinement_passes=0) -> SolveResult:
+                   dmesh=None, u64=None, refinement_passes=0) -> SolveResult:
     """Post-solve tail: stress recovery + SolveResult assembly.  ``u64``
     holds the refined route's fp64-certified displacements, which the
-    result keeps instead of their working-dtype copy."""
+    result keeps instead of their working-dtype copy.  ``dmesh`` is the
+    operator's device mesh; the stencil operator has none, and the
+    stresses then gather through a fresh one."""
     with timer.phase("postprocess"):
+        if dmesh is None:
+            dmesh = problem.mesh.device(dtype=problem.dtype,
+                                        device=problem.device)
         lam_e = torch.as_tensor(problem.lam, dtype=problem.dtype,
                                 device=problem.device)
         mu_e = torch.as_tensor(problem.mu, dtype=problem.dtype,

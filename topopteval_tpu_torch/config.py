@@ -28,7 +28,7 @@ class SolverConfig:
     method: 'direct' | 'cg' | 'minres' | 'gmres' | 'bicgstab' | 'auto'
     preconditioner: 'none' | 'diagonal' | 'block_diagonal' | 'ilu' | 'ichol'
         | 'multigrid'  ('ilu'/'ichol' map to block-diagonal, as in the JAX
-        package; 'multigrid' is not ported yet)
+        package; 'multigrid' runs on generated tet4 boxes)
     """
 
     method: str = "auto"
@@ -55,6 +55,33 @@ class SolverConfig:
             object.__setattr__(self, "max_iterations", 10000)
 
 
+def large_symmetric_config() -> SolverConfig:
+    """Preset for large SPD problems (reference: RobustSolver.jl:747-755)."""
+    return SolverConfig(method="cg", preconditioner="ichol", tolerance=1e-8,
+                        max_iterations=5000, verbose=True)
+
+
+def large_general_config() -> SolverConfig:
+    """Preset for large general problems (reference: RobustSolver.jl:763-772)."""
+    return SolverConfig(method="gmres", preconditioner="ilu", tolerance=1e-8,
+                        restart=50, max_iterations=2000, verbose=True)
+
+
+def memory_efficient_config() -> SolverConfig:
+    """Preset for strict memory budgets (reference: RobustSolver.jl:780-788)."""
+    return SolverConfig(method="bicgstab", preconditioner="diagonal",
+                        tolerance=1e-7, max_iterations=10000, verbose=True)
+
+
 # reference switches to the robust/iterative path at 50k DOFs
 ADAPTIVE_DOF_THRESHOLD = 50_000       # FiniteElementAnalysis.jl:574
 DIRECT_LAST_RESORT_DOFS = 100_000     # RobustSolver.jl:407
+
+
+def adaptive_config(n_dofs: int) -> SolverConfig:
+    """The reference's large-problem settings
+    (FiniteElementAnalysis.jl:578-586)."""
+    return SolverConfig(
+        method="auto", preconditioner="diagonal", tolerance=1e-7,
+        max_iterations=min(max(n_dofs // 10, 5000), 50000),
+        verbose=True, restart=30, history=True)

@@ -34,9 +34,13 @@ class KrylovResult:
 
 
 def apply_preconditioner(M, r: torch.Tensor) -> torch.Tensor:
-    """M is None | inv-diagonal [n] | inverted node blocks [n/3, 3, 3]."""
+    """M is None | inv-diagonal [n] | inverted node blocks [n/3, 3, 3] |
+    any object with an ``.apply(r)`` method (e.g. the multigrid V-cycle,
+    fem/multigrid.py)."""
     if M is None:
         return r
+    if hasattr(M, "apply"):
+        return M.apply(r)
     if M.dim() == 3:
         return torch.bmm(M, r.reshape(-1, 3, 1)).reshape(r.shape)
     return M * r

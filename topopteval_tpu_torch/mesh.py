@@ -205,6 +205,9 @@ class Mesh:
                 f"number of cells ({len(conn)})")
         self.cellsets: Dict[str, np.ndarray] = dict(cellsets or {})
         self._surface_cache = None  # lazy (reference: SelectNodesForBC.jl:30-38)
+        #: set by the structured generators (models/beams.py): cell counts
+        #: and box corners; None for an imported mesh
+        self.structured_info = None
 
     # -- basic queries ------------------------------------------------------
 
@@ -223,6 +226,9 @@ class Mesh:
     @property
     def nodes_per_cell(self) -> int:
         return self.conn.shape[1]
+
+    def bounding_box(self):
+        return self.coords.min(axis=0), self.coords.max(axis=0)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.element_type}, nodes={self.n_nodes}, "

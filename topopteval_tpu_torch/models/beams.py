@@ -4,11 +4,16 @@
 - ``generate_grid_hex``: structured hex8 box grid (VTK node ordering)
 - ``generate_grid_tet``: the same box split into 6 conforming tets per hex
   (all sharing the v0–v6 diagonal)
+- ``refined_beam``: parametric cantilever with about a target number of
+  tets in the fixture beam's 60x20x4 proportions
+
+Both generators attach ``structured_info`` (cell counts and box corners),
+the provenance ``solve_system`` reads to pick the stencil multigrid route.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -47,13 +52,21 @@ def _hex_conn(nx: int, ny: int, nz: int) -> np.ndarray:
     ], axis=1).astype(np.int32)
 
 
+def _structured_info(nx, ny, nz, lo, hi) -> dict:
+    return {"dims": (nx, ny, nz),
+            "lo": tuple(float(v) for v in lo),
+            "hi": tuple(float(v) for v in hi)}
+
+
 def generate_grid_hex(nx: int, ny: int, nz: int,
                       lo: Sequence[float] = (0.0, 0.0, 0.0),
                       hi: Sequence[float] = (1.0, 1.0, 1.0)) -> Mesh:
     """Structured hex8 box grid (Ferrite generate_grid(Hexahedron, ...)
     equivalent)."""
-    return Mesh(_box_nodes(nx, ny, nz, lo, hi), _hex_conn(nx, ny, nz),
+    mesh = Mesh(_box_nodes(nx, ny, nz, lo, hi), _hex_conn(nx, ny, nz),
                 "hex8")
+    mesh.structured_info = _structured_info(nx, ny, nz, lo, hi)
+    return mesh
 
 
 def generate_grid_tet(nx: int, ny: int, nz: int,
@@ -62,4 +75,21 @@ def generate_grid_tet(nx: int, ny: int, nz: int,
     """Structured tet4 box grid: 6 conforming tets per hex cell."""
     hexes = _hex_conn(nx, ny, nz)                       # [H, 8]
     conn = hexes[:, _TET_SPLIT].reshape(-1, 4).astype(np.int32)
-    return Mesh(_box_nodes(nx, ny, nz, lo, hi), conn, "tet4")
+    mesh = Mesh(_box_nodes(nx, ny, nz, lo, hi), conn, "tet4")
+    mesh.structured_info = _structured_info(nx, ny, nz, lo, hi)
+    return mesh
+
+
+def refined_beam(target_tets: int = 1_000_000,
+                 dims: Tuple[float, float, float] = (60.0, 20.0, 4.0)
+                 ) -> Mesh:
+    """Cantilever beam with ~target_tets tet4 elements in the fixture
+    beam's 60x20x4 proportions."""
+    L, W, H = dims
+    # 6 tets per hex; nx:ny:nz ~ L:W:H
+    vol_per_hex = L * W * H / (target_tets / 6)
+    h = vol_per_hex ** (1.0 / 3.0)
+    nx = max(1, round(L / h))
+    ny = max(1, round(W / h))
+    nz = max(1, round(H / h))
+    return generate_grid_tet(nx, ny, nz, (0, 0, 0), (L, W, H))
