@@ -183,3 +183,125 @@ def test_multigrid_solve_on_cuda_matches_cpu(cuda):
     assert out["cuda"].iterations == out["cpu"].iterations
     assert abs(out["cuda"].energy - out["cpu"].energy) \
         <= 1e-10 * out["cpu"].energy
+
+
+# ---------------------------------------------------------------------------
+# block-ELL kernels (csrc/bell_apply.cu)
+# ---------------------------------------------------------------------------
+
+
+def _bell_inputs(device, vals_dtype, vec_dtype, n=1000, n_cols=900,
+                 seed=0, block=True):
+    """A random row-compressed matrix in which every seventh row is empty
+    (lane padding and unsupported voxel corners look like that)."""
+    from topopteval_tpu_torch.ops import bell
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n, 12 * n)
+    rows = rows[rows % 7 != 3]
+    cols = np.clip(rows * n_cols // n + rng.integers(-60, 61, rows.size), 0,
+                   n_cols - 1)
+    shape = (rows.size, 3, 3) if block else (rows.size,)
+    A = bell.pack_csr(rows, cols, rng.standard_normal(shape), n, n_cols,
+                      vals_dtype, device)
+    u = torch.as_tensor(rng.standard_normal((3, n_cols)), dtype=vec_dtype,
+                        device=device)
+    return A, u
+
+
+@pytest.mark.parametrize("case", ["f32", "f32_lo", "f32_bf16", "f64"])
+def test_bell_matvec_kernel_matches_plain_version(cuda, case):
+    from topopteval_tpu_torch.ops import bell
+    vec = torch.float64 if case == "f64" else torch.float32
+    vals = {"f32_bf16": torch.bfloat16, "f64": torch.float64}.get(
+        case, torch.float32)
+    A, u = _bell_inputs(cuda, vals, vec)
+    lo = (A.vals * 1e-7).contiguous() if case == "f32_lo" else None
+    before = dict(bell.LAUNCHES)
+    out = bell.bell_matvec(u, A, lo)
+    torch.cuda.synchronize()
+    assert bell.LAUNCHES["bell_matvec"] == before["bell_matvec"] + 1
+    assert bell.LAUNCHES["sell_matvec"] == before["sell_matvec"]
+    ref = bell.bell_matvec_reference(u, A, lo)
+    empty = (A.indptr[1:] == A.indptr[:-1])
+    assert bool(empty.any()) and bool((out[:, empty] == 0).all())
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL[vec] * scale
+
+
+@pytest.mark.parametrize("case", ["f32", "f32_bf16", "f64"])
+def test_sell_matvec_kernel_matches_plain_version(cuda, case):
+    from topopteval_tpu_torch.ops import bell
+    vec = torch.float64 if case == "f64" else torch.float32
+    vals = {"f32_bf16": torch.bfloat16, "f64": torch.float64}.get(
+        case, torch.float32)
+    T, u = _bell_inputs(cuda, vals, vec, block=False)
+    before = bell.LAUNCHES["sell_matvec"]
+    out = bell.sell_matvec(u, T)
+    torch.cuda.synchronize()
+    assert bell.LAUNCHES["sell_matvec"] == before + 1
+    ref = bell.sell_matvec_reference(u, T)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL[vec] * scale
+
+
+def test_bell_lo_plane_moves_the_output(cuda):
+    """On a rigid translation the hi terms cancel to rounding, so the lo
+    plane is what moves the output: out(hi, lo) - out(hi) equals out(lo)
+    to 1e-3 relative, and differs from zero."""
+    from topopteval_tpu_torch.fem.bell import build_bell_multigrid
+    from topopteval_tpu_torch.ops import bell
+    mesh = tt.generate_grid_tet(6, 3, 3, (0, 0, 0), (6.0, 3.0, 3.0))
+    _, _, info = build_bell_multigrid(mesh, *tt.lame_parameters(1.0, 0.3),
+                                      dtype=torch.float32, device=cuda)
+    host = info["host_arrays"]
+    Np = len(host["L0_indptr"]) - 1
+    A = bell.BlockCSR.from_numpy(host["L0_indptr"], host["L0_cols"],
+                                 host["L0_vals"], Np, torch.float32, cuda)
+    lo = torch.as_tensor(host["fine_vals_lo"], device=cuda)
+    u = torch.zeros((3, Np), dtype=torch.float32, device=cuda)
+    u[0, :mesh.n_nodes], u[1, :mesh.n_nodes] = 1.0, -0.5
+    split = bell.bell_matvec(u, A, lo).double()
+    hi = bell.bell_matvec(u, A).double()
+    lo_only = bell.bell_matvec(u, A.with_vals(lo)).double()
+    assert float((split - hi).abs().max()) > 0.0
+    assert float((split - hi - lo_only).norm()) \
+        <= 1e-3 * float(lo_only.norm())
+
+
+def test_bell_wrappers_reject_bad_inputs(cuda):
+    from topopteval_tpu_torch.ops import bell
+    A, u = _bell_inputs(cuda, torch.float64, torch.float64)
+    with pytest.raises(TypeError):
+        bell.bell_matvec(u.float(), A)
+    with pytest.raises(TypeError, match="lo plane"):
+        bell.bell_matvec(u, A, A.vals)
+    with pytest.raises(ValueError, match="on cpu"):
+        bell.bell_matvec(u.cpu(), A)
+    with pytest.raises(ValueError, match="contiguous"):
+        bell.bell_matvec(u.t().contiguous().t(), A)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_bell_solve_on_cuda_matches_cpu(cuda, dtype, monkeypatch):
+    """The block-ELL route on the card against the same call on the CPU:
+    the same iteration count in float64, and both at the direct solve's
+    energy."""
+    from topopteval_tpu_torch.ops import bell
+    monkeypatch.setenv("TOPOPT_MG_CACHE_DIR", "off")
+    mesh = tt.generate_grid_tet(12, 4, 4, (0, 0, 0), (12.0, 4.0, 4.0))
+    mesh.structured_info = None
+    config = tt.SolverConfig(method="cg", preconditioner="multigrid",
+                             tolerance=1e-10, verbose=False)
+    out = {}
+    for device in ("cpu", "cuda"):
+        problem = tt.cantilever_beam(mesh, dtype=dtype, device=device)
+        bell.reset_launch_counts()
+        out[device] = tt.solve_system(problem, config)
+        launched = bell.LAUNCHES["bell_matvec"] > 0 \
+            and bell.LAUNCHES["sell_matvec"] > 0
+        assert launched == (device == "cuda")
+    assert out["cuda"].method == "cg" and out["cuda"].converged
+    if dtype == torch.float64:
+        assert out["cuda"].iterations == out["cpu"].iterations
+    assert abs(out["cuda"].energy - out["cpu"].energy) \
+        <= 1e-9 * out["cpu"].energy

@@ -9,7 +9,7 @@ stencil-hierarchy route on the same problem: the scale-2 beam
 V-cycle is the dense inverse alone) through both packages, and a 16x8x4
 cantilever with a seeded per-hex SIMP scale against the direct oracle.
 Where the structured hierarchy does not apply the
-port raises ``NotImplementedError``; it never solves another way.
+block-ELL hierarchy takes the solve.
 
 Tolerances are stated where they are used.
 """
@@ -20,6 +20,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from topopteval_tpu import api as jax_api
@@ -34,6 +35,14 @@ tt.set_verbosity(False)
 # test processes running side by side do not fight over the cores (torch's
 # thread pool spins at its barriers when the machine is oversubscribed)
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """The block-ELL host build's dense eigensolves and sparse products
+    run in OpenBLAS: one thread here too, for the same reason."""
+    with threadpoolctl.threadpool_limits(1):
+        yield
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAM, MU = lame_parameters(1.0, 0.3)
@@ -153,8 +162,15 @@ def test_solve_system_multigrid_float32_refines_to_the_oracle():
 @pytest.mark.parametrize("case", ["imported", "no_coarsening", "hex8",
                                   "material_inside_hex"])
 def test_multigrid_raises_where_the_structured_hierarchy_does_not_apply(
-        case, beam_tet_path):
-    """No quiet substitute: these need the block-ELL hierarchy."""
+        case, beam_tet_path, monkeypatch):
+    """Where the structured hierarchy does not apply, the block-ELL
+    hierarchy (fem/bell.py) takes the solve, never a quiet substitute of
+    another kind: the operator is a ``BellSystem`` and the energy meets the
+    float64 host direct oracle."""
+    from topopteval_tpu_torch.fem.bell import BellSystem
+    from topopteval_tpu_torch.fem.operator import assemble_scipy
+    from topopteval_tpu_torch.fem.solvers import direct_solve
+    monkeypatch.setenv("TOPOPT_MG_CACHE_DIR", "off")
     if case == "imported":
         mesh = tt.import_mesh(beam_tet_path)
     elif case == "no_coarsening":     # odd dims, 4,680 > 4,000 coarse DOFs
@@ -167,5 +183,11 @@ def test_multigrid_raises_where_the_structured_hierarchy_does_not_apply(
     if case == "material_inside_hex":
         problem.mu = problem.mu * np.random.default_rng(0).uniform(
             0.5, 1.0, mesh.n_cells)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tt.solve_system(problem, tt.SolverConfig(**MG_KW))
+    result = tt.solve_system(problem, tt.SolverConfig(**MG_KW))
+    assert isinstance(tt.api._get_multigrid(problem)[0], BellSystem)
+    assert result.method == "cg" and result.converged
+    mask = tt.free_mask_from_bcs(problem.n_dofs, problem.bcs)
+    K = assemble_scipy(problem.mesh, problem.lam, problem.mu,
+                       order=problem.quad_order, free_mask=mask)
+    u = direct_solve(K, problem.f * mask)
+    assert _rel(result.energy, 0.5 * float(u @ (K @ u))) <= 1e-8

@@ -195,7 +195,8 @@ def test_cantilever_auto_selects_direct_below_50k(beam_tet_path):
 
 @pytest.mark.parametrize("kwargs,item", [
     # the scale-2 state below carries no ``structured_info``: multigrid
-    # then needs the block-ELL hierarchy
+    # takes the block-ELL hierarchy, whose monolithic build (what a
+    # material with lam = 0, Poisson's ratio 0, needs) is not ported
     (dict(method="cg", preconditioner="multigrid", verbose=False),
      "item 6"),
     (dict(method="minres", verbose=False), "item 9"),
@@ -204,6 +205,8 @@ def test_cantilever_auto_selects_direct_below_50k(beam_tet_path):
 def test_unported_routes_raise(beam2, kwargs, item):
     problem = tt.problem_from_numpy(_state(beam2), device="cpu",
                                     dtype=torch.float64)
+    if kwargs.get("preconditioner") == "multigrid":
+        problem.lam = np.zeros_like(problem.lam)
     with pytest.raises(NotImplementedError, match=item):
         tt.solve_system(problem, tt.SolverConfig(**kwargs))
     with pytest.raises(NotImplementedError, match="item 13"):

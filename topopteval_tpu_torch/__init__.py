@@ -5,7 +5,9 @@ import, linear-elastic FEM with SIMP density penalization, a matrix-free
 stiffness operator whose element applies are hand-written CUDA kernels
 (csrc/), block-Jacobi PCG with float64 dots and float64-certified
 mixed-precision refinement, geometric multigrid PCG on generated boxes
-over a hand-written stencil kernel, stress recovery and VTU export.
+over a hand-written stencil kernel, block-ELL (Galerkin voxel-chain)
+multigrid PCG on any other mesh over hand-written block-sparse kernels,
+stress recovery and VTU export.
 
 The public names mirror ``topopteval_tpu``'s facade, so each function
 has a counterpart of the same name there.  Entry points take an explicit

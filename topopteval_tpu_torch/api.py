@@ -10,12 +10,13 @@ runs the matrix-free operator on that device.
 Routes of ``solve_system`` in this package: ``direct`` (host sparse LU),
 block-Jacobi PCG (``cg``) with float64 dots, multigrid PCG
 (``preconditioner="multigrid"``) on generated tet4 boxes through the
-stencil hierarchy of fem/multigrid.py, float32 PCG inside float64
-host-residual refinement when ``tolerance < 1e-6``, and the
-backward-error gate with its direct fallback.  Multigrid on any other
-mesh (the block-ELL hierarchy), multi-device solves, the other Krylov
-methods and the ``verbose=True`` robust ladder are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+stencil hierarchy of fem/multigrid.py and on every other mesh through the
+block-ELL hierarchy of fem/bell.py, float32 PCG inside float64
+host-residual refinement, and the backward-error gate with its direct
+fallback.  Multi-device solves, the other Krylov methods, the
+``verbose=True`` robust ladder, ``TOPOPT_MG=galerkin`` and the monolithic
+block-ELL build are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -118,6 +119,9 @@ class Problem:
         default_factory=lambda: torch.device("cuda"))
     #: (fingerprint, operator, preconditioner) of the last multigrid build
     _mg_cache: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    #: build record of the last block-ELL hierarchy (fem/bell.py)
+    _mg_build_info: Optional[dict] = dataclasses.field(default=None,
+                                                       repr=False)
 
     def __post_init__(self):
         if self.quad_order is None:
@@ -323,15 +327,94 @@ def _material_fingerprint(problem: Problem) -> tuple:
             str(problem.dtype), str(problem.device))
 
 
+def _mg_cache_root() -> Optional[str]:
+    root = os.environ.get("TOPOPT_MG_CACHE_DIR",
+                          os.path.join(os.getcwd(), ".topopt_mg_cache"))
+    return None if root.lower() in ("0", "off", "none", "") else root
+
+
+def _bell_cache_path(problem: Problem, mask) -> Optional[str]:
+    """On-disk hierarchy cache location (None: caching disabled by
+    ``TOPOPT_MG_CACHE_DIR=off``).  The files are this package's own format
+    and carry a ``bell_torch_`` prefix, so neither package tries to load
+    the other's hierarchy from a shared directory."""
+    root = _mg_cache_root()
+    if root is None:
+        return None
+    from .fem.bell import hierarchy_cache_key
+    key = hierarchy_cache_key(problem.mesh, problem.lam, problem.mu, mask,
+                              problem.dtype, problem.quad_order)
+    return os.path.join(root, f"bell_torch_{key}.npz")
+
+
+#: process-wide skeleton RAM cache (one entry, see fem/bell.py): a density
+#: swap on the same mesh and BCs skips straight to the value pass
+_SKEL_RAM_CACHE: dict = {}
+
+
+def _skel_cache_path(problem: Problem, mask) -> Optional[str]:
+    """On-disk location of the density-independent skeleton.  Opt-in
+    (``TOPOPT_BELL_SKEL_DISK=1``): the skeleton is large and the RAM cache
+    above serves density swaps within a process."""
+    if os.environ.get("TOPOPT_BELL_SKEL_DISK", "0") != "1":
+        return None
+    root = _mg_cache_root()
+    if root is None:
+        return None
+    from .fem.bell import skeleton_cache_key
+    key = skeleton_cache_key(problem.mesh, mask, problem.quad_order)
+    return os.path.join(root, f"bellskel_torch_{key}.npz")
+
+
+def _get_bell_multigrid(problem: Problem, mask):
+    """Block-ELL hierarchy for a general mesh, with .npz persistence keyed
+    by mesh, material and BCs, and the skeleton cache keyed by mesh and
+    BCs only (density swaps re-pay values, not the mesh work)."""
+    from .fem.bell import (build_bell_multigrid, load_hierarchy,
+                           save_hierarchy)
+    t0 = time.perf_counter()
+    path = _bell_cache_path(problem, mask)
+    if path is not None and os.path.exists(path):
+        try:
+            system, mg, info = load_hierarchy(path, problem.dtype,
+                                              device=problem.device)
+            info["load_seconds"] = round(time.perf_counter() - t0, 3)
+            log(f"multigrid hierarchy loaded from cache "
+                f"({info['load_seconds']}s): {path}")
+            return system, mg, info
+        except (OSError, ValueError, KeyError) as e:   # stale/corrupt cache
+            print_warning(f"hierarchy cache load failed ({e}); rebuilding")
+    system, mg, info = build_bell_multigrid(
+        problem.mesh, problem.lam, problem.mu, free_mask=mask,
+        dtype=problem.dtype, order=problem.quad_order,
+        skeleton_path=_skel_cache_path(problem, mask),
+        skeleton_cache=_SKEL_RAM_CACHE, device=problem.device)
+    info["cached"] = False
+    if path is not None:
+        try:
+            t_s = time.perf_counter()
+            save_hierarchy(path, info)
+            info["save_seconds"] = round(time.perf_counter() - t_s, 3)
+            log(f"multigrid hierarchy cached to {path} "
+                f"({info['save_seconds']}s)")
+        except OSError as e:
+            print_warning(f"hierarchy cache save failed: {e}")
+    # the host arrays exist for save_hierarchy only
+    info.pop("host_arrays", None)
+    return system, mg, info
+
+
 def _get_multigrid(problem: Problem):
     """(op, mg) for preconditioner='multigrid', cached per material+BCs.
 
     Generated structured tet4 boxes (mesh.structured_info) with a per-hex
     constant material ride the stencil hierarchy (fem/structured.py,
     fem/multigrid.py).  Anything else (imported meshes, hex8, a material
-    that varies inside a hex, dims that do not coarsen 2:1) needs the
-    block-ELL hierarchy, which is not ported yet: that raises, it never
-    solves another way."""
+    that varies inside a hex, dims that do not coarsen 2:1) gets the
+    block-ELL hierarchy (fem/bell.py), whose operator is a
+    :class:`.fem.bell.BellSystem` on component-major vectors.
+    ``TOPOPT_MG=galerkin`` (the voxel-probing hierarchy) is not ported and
+    raises."""
     key = _material_fingerprint(problem)
     cached = problem._mg_cache
     if cached is not None and cached[0] == key:
@@ -342,7 +425,6 @@ def _get_multigrid(problem: Problem):
     mask = free_mask_from_bcs(problem.n_dofs, problem.bcs)
     info = mesh.structured_info
     op = mg = None
-    why = "the mesh is not a generated tet4 box"
     if info is not None and mesh.element_type == "tet4":
         nx, ny, nz = info["dims"]
         lam_e = np.broadcast_to(problem.lam, (mesh.n_cells,))
@@ -351,7 +433,6 @@ def _get_multigrid(problem: Problem):
         mu_h = mu_e.reshape(-1, 6)
         per_hex = (np.ptp(mu_h, axis=1).max() == 0
                    and np.ptp((lam_e / np.maximum(mu_e, 1e-300))) < 1e-12)
-        why = "the material varies inside a hex"
         if per_hex:
             iref = int(np.argmax(mu_e))
             lam0, mu0 = float(lam_e[iref]), float(mu_e[iref])
@@ -365,13 +446,14 @@ def _get_multigrid(problem: Problem):
                     nx, ny, nz, info["lo"], info["hi"], lam0, mu0,
                     free_mask=mask, escale=esc, dtype=problem.dtype,
                     device=problem.device)
-            except ValueError as e:   # e.g. odd dims: no 2:1 coarsening
-                why = str(e)
+            except ValueError:      # e.g. odd dims: no 2:1 coarsening
+                op = mg = None
     if op is None:
-        raise NotImplementedError(
-            f"multigrid: the structured hierarchy does not apply ({why}) "
-            "and the block-ELL hierarchy for general meshes is not ported "
-            "yet (ROADMAP Queue A item 6)")
+        if os.environ.get("TOPOPT_MG", "bell").lower() == "galerkin":
+            raise NotImplementedError(
+                "TOPOPT_MG=galerkin (the voxel-probing Galerkin hierarchy) "
+                "is not ported yet (ROADMAP Queue A item 12)")
+        op, mg, problem._mg_build_info = _get_bell_multigrid(problem, mask)
     problem._mg_cache = (key, op, mg)
     return op, mg
 
@@ -525,14 +607,19 @@ def solve_system(problem: Problem,
             op = problem.build_operator(with_bc=True)
     n = problem.n_dofs
     dtype, device = problem.dtype, problem.device
-    f_dev = torch.as_tensor(problem.f, dtype=dtype,
-                            device=device) * op.free_mask
+    # the block-ELL operator (fem/bell.py) works on RCM-permuted
+    # component-major vectors; to_cm / to_il convert at the boundary
+    is_cm = getattr(op, "layout", None) == "cm"
+    f_host = op.to_cm(problem.f) if is_cm else problem.f
+    f_dev = torch.as_tensor(f_host, dtype=dtype, device=device) * op.free_mask
 
     # fp32 cannot reach fp64-grade residuals on its own: a tolerance below
     # 1e-6 routes the solve through mixed-precision refinement whose OUTER
-    # criterion is an exact fp64 host matvec
+    # criterion is an exact fp64 host matvec.  The block-ELL route refines
+    # every float32 solve, as the JAX package does: its fp64 scipy twin is
+    # already built and cheap to apply
     want_refine = (method != "direct" and dtype == torch.float32
-                   and config.tolerance < 1e-6)
+                   and (is_cm or config.tolerance < 1e-6))
 
     log("Solving linear system...")
     t0 = time.perf_counter()
@@ -556,11 +643,18 @@ def solve_system(problem: Problem,
         # multigrid takes this plain-PCG path whatever ``verbose`` says
         M = M_mg if M_mg is not None else _build_preconditioner(op, config)
         if want_refine:
-            system = _HostRefineSystem(problem)
-            f64 = np.asarray(problem.f, np.float64)[:n] * system.mask
-            x0_64 = None
-            if x0 is not None:
-                x0_64 = np.asarray(x0, np.float64)[:n] * system.mask
+            if is_cm:                   # BellSystem.matvec64, fp64 scipy
+                system = op
+                mask64 = op.free_mask.double().cpu().numpy()
+                f64 = op.to_cm(problem.f) * mask64
+                x0_64 = (None if x0 is None
+                         else op.to_cm(np.asarray(x0)[:n]) * mask64)
+            else:
+                system = _HostRefineSystem(problem)
+                f64 = np.asarray(problem.f, np.float64)[:n] * system.mask
+                x0_64 = None
+                if x0 is not None:
+                    x0_64 = np.asarray(x0, np.float64)[:n] * system.mask
 
             def _inner(rhs, left, tol_inner):
                 r = cg(op, rhs, M=M, tol=tol_inner, maxiter=left,
@@ -579,8 +673,9 @@ def solve_system(problem: Problem,
         else:
             x0_dev = None
             if x0 is not None:
+                x0_h = np.asarray(x0)[:n]
                 x0_dev = torch.as_tensor(
-                    np.asarray(x0)[:n], dtype=dtype,
+                    op.to_cm(x0_h) if is_cm else x0_h, dtype=dtype,
                     device=device) * op.free_mask
             res = cg(op, f_dev, x0=x0_dev, M=M, tol=config.tolerance,
                      maxiter=config.max_iterations,
@@ -614,6 +709,7 @@ def solve_system(problem: Problem,
                 u = _host_direct()
                 niter, rnorm, conv = 1, 0.0, True
                 method = "direct(verification-fallback)"
+                is_cm = False          # the direct solve is interleaved
                 energy64 = None
                 u64 = None
                 history = None
@@ -623,6 +719,12 @@ def solve_system(problem: Problem,
     # the refined route's fp64 energy (0.5 u.f with exact residual
     # control) supersedes the working-dtype device evaluation
     energy = energy64 if energy64 is not None else float(op.energy(u))
+    if is_cm:
+        # back to the public interleaved DOF layout for stresses and export
+        u = torch.as_tensor(op.to_il(u.cpu().numpy()), dtype=dtype,
+                            device=device)
+        if u64 is not None:
+            u64 = op.to_il(u64)
     return _finish_result(problem, u, energy, method, niter, rnorm, conv,
                           solve_time, history, timer,
                           dmesh=getattr(op, "dmesh", None), u64=u64,

@@ -171,6 +171,46 @@ def build_transfer_tables(nx_f: int, ny_f: int, nz_f: int):
     return parents, weights, _restriction_incidence(parents, N_c)
 
 
+def build_voxel_transfer(coords: np.ndarray, lo, hi,
+                         dims: Tuple[int, int, int]):
+    """Trilinear embedding of arbitrary nodes into a (vx, vy, vz)-cell
+    voxel lattice over [lo, hi]: the first transfer of the block-ELL
+    hierarchy (fem/bell.py), whose fine nodes lie anywhere in the box.
+
+    Returns (parents [N, 8], weights [N, 8], incidence) NumPy arrays in
+    the :class:`Transfer` format (sentinel id = n_coarse for zero-weight
+    slots, keeping the restriction incidence narrow).
+    """
+    vx, vy, vz = (int(d) for d in dims)
+    lo = np.asarray(lo, np.float64)
+    hi = np.asarray(hi, np.float64)
+    coords = np.asarray(coords, np.float64)
+    N = coords.shape[0]
+    N_c = (vx + 1) * (vy + 1) * (vz + 1)
+    d = np.array([vx, vy, vz], np.float64)
+    span = np.where(hi - lo > 0, hi - lo, 1.0)
+    t = (coords - lo) / span * d
+    cell = np.clip(np.floor(t).astype(np.int64), 0,
+                   np.array([vx, vy, vz]) - 1)
+    frac = np.clip(t - cell, 0.0, 1.0)
+    parents = np.empty((N, 8), dtype=np.int64)
+    weights = np.empty((N, 8), dtype=np.float64)
+    s = 0
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                w = ((frac[:, 0] if dx else 1.0 - frac[:, 0])
+                     * (frac[:, 1] if dy else 1.0 - frac[:, 1])
+                     * (frac[:, 2] if dz else 1.0 - frac[:, 2]))
+                cid = ((cell[:, 0] + dx) + (cell[:, 1] + dy) * (vx + 1)
+                       + (cell[:, 2] + dz) * (vx + 1) * (vy + 1))
+                parents[:, s] = np.where(w > 0, cid, N_c)
+                weights[:, s] = w
+                s += 1
+    return (parents.astype(np.int32), weights,
+            _restriction_incidence(parents, N_c))
+
+
 @dataclasses.dataclass(frozen=True)
 class Transfer:
     """Prolongation (coarse→fine) / restriction (fine→coarse) pair, as one
@@ -333,20 +373,30 @@ class MultigridPreconditioner:
     nu: int = 2
     smoother: str = "jacobi"
 
-    def _smooth(self, L: MGLevel, r2d, z2d, sweeps: int):
+    # layout hooks: node-major [N, 3] vectors and [N, 3, 3] smoother blocks
+    # here; fem/bell.BellMG overrides them for component-major [3, Np]
+    def _shape(self, r: torch.Tensor) -> torch.Tensor:
+        return r.reshape(-1, 3)
+
+    def _mask(self, L) -> torch.Tensor:
+        return L.op.free_mask.reshape(-1, 3)
+
+    def _binv(self, L, v: torch.Tensor) -> torch.Tensor:
+        return _apply_blocks(L.binv, v)
+
+    def _amul(self, L, z: torch.Tensor) -> torch.Tensor:
+        return L.op.matvec(z.reshape(-1)).reshape(z.shape)
+
+    def _smooth(self, L, r2d, z2d, sweeps: int):
         if self.smoother == "chebyshev" and L.lam_max is not None:
             return self._smooth_chebyshev(L, r2d, z2d, sweeps)
         for _ in range(sweeps):
-            if z2d is None:
-                res = r2d
-            else:
-                Az = L.op.matvec(z2d.reshape(-1)).reshape(-1, 3)
-                res = r2d - Az
-            dz = _apply_blocks(L.binv, res)
+            res = r2d if z2d is None else r2d - self._amul(L, z2d)
+            dz = self._binv(L, res)
             z2d = self.omega * dz if z2d is None else z2d + self.omega * dz
         return z2d
 
-    def _smooth_chebyshev(self, L: MGLevel, r2d, z2d, sweeps: int):
+    def _smooth_chebyshev(self, L, r2d, z2d, sweeps: int):
         """Three-term Chebyshev recurrence on B^-1 A over
         [lam_max/4, 1.1 lam_max].  The 1.1 headroom matters: Chebyshev
         polynomials grow fast OUTSIDE the band, so an underestimated
@@ -358,42 +408,36 @@ class MultigridPreconditioner:
         s1 = theta / delta
 
         if z2d is None:
-            rr = r2d
-            d = _apply_blocks(L.binv, rr) * (1.0 / theta)
+            d = self._binv(L, r2d) * (1.0 / theta)
             z2d = d
         else:
-            Az = L.op.matvec(z2d.reshape(-1)).reshape(-1, 3)
-            rr = r2d - Az
-            d = _apply_blocks(L.binv, rr) * (1.0 / theta)
+            d = self._binv(L, r2d - self._amul(L, z2d)) * (1.0 / theta)
             z2d = z2d + d
         rho_old = 1.0 / s1
         for _ in range(sweeps - 1):
             rho = 1.0 / (2.0 * s1 - rho_old)
-            Az = L.op.matvec(z2d.reshape(-1)).reshape(-1, 3)
-            rr = r2d - Az
-            d = (rho * rho_old) * d + (2.0 * rho / delta) * _apply_blocks(
-                L.binv, rr)
+            rr = r2d - self._amul(L, z2d)
+            d = (rho * rho_old) * d + (2.0 * rho / delta) * self._binv(L, rr)
             z2d = z2d + d
             rho_old = rho
         return z2d
 
     def _vcycle(self, lvl: int, r2d):
         if lvl == len(self.levels):
-            return (self.coarse_inv @ r2d.reshape(-1)).reshape(-1, 3)
+            return (self.coarse_inv @ r2d.reshape(-1)).reshape(r2d.shape)
         L = self.levels[lvl]
         z = self._smooth(L, r2d, None, self.nu)
-        Az = L.op.matvec(z.reshape(-1)).reshape(-1, 3)
-        res = r2d - Az
-        m_f = L.op.free_mask.reshape(-1, 3)
+        res = r2d - self._amul(L, z)
+        m_f = self._mask(L)
         rc = L.transfer.restrict(res * m_f)
         if lvl + 1 < len(self.levels):
-            rc = rc * self.levels[lvl + 1].op.free_mask.reshape(-1, 3)
+            rc = rc * self._mask(self.levels[lvl + 1])
         zc = self._vcycle(lvl + 1, rc)
         z = z + L.transfer.prolong(zc) * m_f
         return self._smooth(L, r2d, z, self.nu)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
-        return self._vcycle(0, r.reshape(-1, 3)).reshape(r.shape)
+        return self._vcycle(0, self._shape(r)).reshape(r.shape)
 
 
 def _per_element_material(lam, mu, esc, element: str):

@@ -74,6 +74,19 @@ def _voxel_index(points: np.ndarray, lo, span, dims) -> np.ndarray:
     return (ijk[:, 0] * dims[1] + ijk[:, 1]) * dims[2] + ijk[:, 2]
 
 
+def bench_simp_density(nx: int, ny: int, nz: int) -> np.ndarray:
+    """The benchmark's SIMP field: the bundled vfrac-0.4 optimized density
+    resampled per hex onto an (nx, ny, nz) grid over the 60x20x4 beam and
+    replicated to its 6 tets (``generate_grid_tet`` numbers tets
+    hex-major), so the data/oracle_energies.json ``simp_beam_scale_*``
+    oracles rebuild the identical field."""
+    from .beams import generate_grid_hex
+
+    hmesh = generate_grid_hex(nx, ny, nz, (0.0, 0.0, 0.0),
+                              (60.0, 20.0, 4.0))
+    return np.repeat(vfrac04_density_for(hmesh), 6)
+
+
 def vfrac04_density_for(target_mesh: Mesh,
                         fixture_path: str = VFRAC04_FIXTURE) -> np.ndarray:
     """The bundled vfrac-0.4 optimized density resampled onto
