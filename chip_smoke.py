@@ -46,7 +46,22 @@ few) and each failing the script on a failed check:
    under two column orders); the SIMP Hex8 fixture in float32
    against the host direct oracle; the kernels' times beside their bound,
    the plain version and a cuSPARSE yardstick; and where one MG-PCG
-   iteration at scale 16 spends its time.
+   iteration at scale 16 spends its time;
+9. quadratic elements and the stored-Ke operator: the tet10 apply (B7)
+   and the Ke-batch kernels (B6 tet4, B8 hex8 and tet10) against their
+   plain versions at the scale-8 tet10 beam (153,600 elements), the
+   scale-16 tet4 beam and the SIMP Hex8 fixture; the scale-4 tet10 beam
+   through ``solve_system(p)`` with no config (fp32 block-Jacobi CG under
+   fp64 refinement) and the scale-2 one in fp64, against
+   data/oracle_energies.json; the Tet4 fixture at
+   ``interpolation_order=2`` (50,274 DOFs) in fp64 against the host
+   direct solve; the scale-8 tet10 beam (666,315 DOFs) by matrix-free
+   fp64 block-Jacobi PCG and by the block-ELL multigrid in fp32, which
+   must agree to 1e-8; stored mode on the scale-8 tet4 and scale-4 tet10
+   beams and the SIMP Hex8 fixture (against otf) and a ``with_material``
+   swap; a hex20 box against the direct solve; and the three kernels'
+   times beside their bound, the plain version and a ``torch.bmm``
+   yardstick.
 
 The line before last is one JSON object with a record per kernel; the
 last line is the run's contract line.  Imports nothing of JAX.
@@ -90,11 +105,41 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #    vol*esc 1; the 3 scaled columns s_i = w sigma e_i / h_i 9; the nodal
 #    forces -s_1, s_1 - s_2, s_2 - s_3, s_3 6; 12 adds onto the corners.
 #    62 per tet, 372 per cell.
+#  tet10 apply, 4-point rule: per point the reference gradients of the 3
+#    coordinate and the 3 displacement fields over the 10 nodes, 9 entries
+#    of 10 products and 9 adds each, 171 twice (342); cofactors 27, det 5,
+#    1/det 1, w/det 1, lam w/det and mu w/det 2, H adj(J) 45, sigma 16,
+#    P = sigma adj(J)^T 45 (142); P onto the 10 nodes, 15 each (150).
+#    4 x 634 plus 3 x 30 adds over the points: 2626.
+#  Ke batches: a_k = dN_k adj(J) unscaled, s = w/det, so that
+#    Ke = sum_q s (lam a_ia a_jb + mu a_ib a_ja + mu d_ab a_i.a_j); only
+#    the upper triangle (3k(3k+1)/2 entries) is computed, 5 each, plus
+#    one add per a == b entry of a node pair (3 per pair i <= j), the
+#    k(k+1)/2 dots a_i.a_j (5 each) and their mu s scaling (1 each).
+#  tet4 Ke (constant strain, one point): edges 9, cofactors 27, det 5,
+#    1/(6 det) 2, lam and mu times it 2, a_0 = -(a_1 + a_2 + a_3) 6; dots
+#    50 and 10; 78 entries 390; 30 adds.  Total 531.
+#  hex8 Ke, 2x2x2 Gauss: J at all 8 points from the sum-factorised
+#    coordinate gradients (324); per point cofactors, det, 1/det, w/det,
+#    lam s, mu s 36, a_k 15 each (120), dots 180 and 36, 300 entries 1500,
+#    108 adds (1980 per point); 300 x 7 adds over the points.  Total
+#    18,264.
+#  tet10 Ke, 4 points: per point J 171, 36, a_k 150, dots 275 and 55,
+#    465 entries 2325, 165 adds (3177); 465 x 3 adds over the points.
+#    Total 14,103.
 FLOPS_PER_ELEMENT = {"tet4_apply": 166, "hex8_apply": 2256,
-                     "stencil_plane": 372, "stencil_window": 372}
+                     "stencil_plane": 372, "stencil_window": 372,
+                     "tet10_apply": 2626, "tet4_ke": 531,
+                     "hex8_ke": 18264, "tet10_ke": 14103}
 REPLACES = {
     "tet4_apply": "topopteval_tpu/ops/pallas_kernels.py:137",
     "hex8_apply": "topopteval_tpu/ops/pallas_kernels.py:256",
+    "tet10_apply": "topopteval_tpu/ops/pallas_kernels.py:343",
+    "tet4_ke": "topopteval_tpu/ops/pallas_kernels.py:71",
+    # B8: _make_iso_ke_kernel (:381) and its stream twin (:425), which the
+    # JAX package calls by default; one CUDA kernel ports both
+    "hex8_ke": "topopteval_tpu/ops/pallas_kernels.py:425",
+    "tet10_ke": "topopteval_tpu/ops/pallas_kernels.py:425",
     "stencil_plane": "topopteval_tpu/ops/pallas_stencil.py:156",
     "stencil_window": "topopteval_tpu/ops/pallas_stencil.py:97",
     "bell_matvec": "topopteval_tpu/ops/pallas_bsr.py:287",
@@ -103,6 +148,7 @@ REPLACES = {
 SOURCE = "topopteval_tpu_torch/csrc/element_apply.cu"
 STENCIL_SOURCE = "topopteval_tpu_torch/csrc/stencil_apply.cu"
 BELL_SOURCE = "topopteval_tpu_torch/csrc/bell_apply.cu"
+KE_SOURCE = "topopteval_tpu_torch/csrc/element_ke.cu"
 # operations per stored entry that the block-ELL functions need: a 3x3
 # block times a 3-vector added into 3 sums, 9 multiplies and 9 adds; a
 # scalar weight times a 3-vector into 3 sums, 6
@@ -135,6 +181,7 @@ def main() -> int:
     from topopteval_tpu_torch.fem.solvers import direct_solve
     from topopteval_tpu_torch.ops import bell as bo
     from topopteval_tpu_torch.ops import element_kernels as ek
+    from topopteval_tpu_torch.ops import ke_kernels as kk
     from topopteval_tpu_torch.ops import stencil as st
     from topopteval_tpu_torch.ops.elements import element_stiffness
 
@@ -145,8 +192,8 @@ def main() -> int:
     CG = tt.SolverConfig(**CG_KW)
     kernel_fns = {"tet4_apply": (ek.tet4_apply, ek.tet4_apply_reference),
                   "hex8_apply": (ek.hex8_apply, ek.hex8_apply_reference)}
-    main_path_launches = {name: 0 for name in (*kernel_fns, *st.LAUNCHES,
-                                               *bo.LAUNCHES)}
+    main_path_launches = {name: 0 for name in (*ek.LAUNCHES, *st.LAUNCHES,
+                                               *bo.LAUNCHES, *kk.LAUNCHES)}
 
     # -- 1. device + build -------------------------------------------------
     smi = subprocess.run(
@@ -217,12 +264,14 @@ def main() -> int:
         ek.reset_launch_counts()
         st.reset_launch_counts()
         bo.reset_launch_counts()
+        kk.reset_launch_counts()
         t = time.perf_counter()
         result = (tt.solve_system(problem, config) if config is not None
                   else tt.solve_system(problem))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        launches = {**ek.LAUNCHES, **st.LAUNCHES, **bo.LAUNCHES}
+        launches = {**ek.LAUNCHES, **st.LAUNCHES, **bo.LAUNCHES,
+                    **kk.LAUNCHES}
         for n, c in launches.items():
             main_path_launches[n] += c
         check(launches[kernel] > 0, f"{kernel} was not launched by the solve")
@@ -232,19 +281,22 @@ def main() -> int:
         check(np.all(np.isfinite(result.von_mises)), "non-finite von Mises")
         return result, seconds, launches[kernel]
 
-    def setup(mesh, dtype, density=None):
-        p = tt.setup_problem(mesh, dtype=dtype)
+    def setup(mesh, dtype, density=None, order=1, mode="otf"):
+        p = tt.setup_problem(mesh, interpolation_order=order, dtype=dtype,
+                             mode=mode)
         if density is None:
             tt.assemble_stiffness_matrix(p, lam0, mu0)
         else:
             tt.assemble_stiffness_matrix_simp(p, simp_material, density)
-        tt.apply_fixed_boundary(p, tt.nodes_at_plane(mesh, 0, 0.0))
-        tt.apply_force(p, tt.nodes_at_plane(mesh, 0, 60.0), [0.0, 0.0, -1.0])
+        tt.apply_fixed_boundary(p, tt.nodes_at_plane(p.mesh, 0, 0.0))
+        tt.apply_force(p, tt.nodes_at_plane(p.mesh, 0, 60.0),
+                       [0.0, 0.0, -1.0])
         return p
 
     def oracle_energy(p):
         mask = tt.free_mask_from_bcs(p.n_dofs, p.bcs)
-        K = assemble_scipy(p.mesh, p.lam, p.mu, free_mask=mask)
+        K = assemble_scipy(p.mesh, p.lam, p.mu, order=p.quad_order,
+                           free_mask=mask)
         u = direct_solve(K, p.f * mask)
         return 0.5 * float(u @ (K @ u))
 
@@ -1058,6 +1110,290 @@ def main() -> int:
     print("[breakdown] bell_beam16_fp32 top device ops per iteration (ms): "
           + ", ".join(f"{e.key[:48]}={e.self_device_time_total / 1e3 / iters:.4f}"
                       for e in top), flush=True)
+
+    # -- 9. quadratic elements and the stored-Ke operator ------------------
+    # 9a. the three kernels against their plain versions at the shapes the
+    # main path gives them: B7 on the scale-8 tet10 beam, the Ke kernels
+    # as ops/elements.element_stiffness calls them (the gathered batch as
+    # its own node table, an identity conn): B6 on the scale-16 tet4 beam,
+    # B8 on the scale-8 tet10 beam and the SIMP Hex8 fixture
+    def quad_beam(scale):
+        """The scale-``scale`` beam made quadratic (tet10), as
+        tools/oracle_energy.py makes the tet10 oracles."""
+        return tt.generate_grid_tet(25 * scale // 2, 4 * scale, scale,
+                                    (0, 0, 0), BEAM_BOX).to_quadratic()
+
+    quad8 = quad_beam(8)
+    check(quad8.n_cells == 153_600 and quad8.n_dofs == 666_315,
+          "the scale-8 tet10 beam is not 153,600 elements / 666,315 DOFs")
+    beam16 = tt.generate_grid_tet(200, 64, 16, (0, 0, 0), BEAM_BOX)
+    hex_path = os.path.join(data, "beam_vfrac_04_Raw.vtu")
+    hexfix = tt.import_mesh(hex_path)
+    hex_density = tt.extract_cell_density(hex_path)
+    hex_lam, hex_mu = simp_material.lame(hex_density)
+    quad_fns = {"tet10_apply": (ek.tet10_apply, ek.tet10_apply_reference),
+                "tet4_ke": (kk.tet4_ke, kk.tet4_ke_reference),
+                "tet10_ke": (kk.tet10_ke, kk.tet10_ke_reference),
+                "hex8_ke": (kk.hex8_ke, kk.hex8_ke_reference)}
+    quad_meshes = {"tet10_apply": (quad8, lam0, mu0),
+                   "tet4_ke": (beam16, lam0, mu0),
+                   "tet10_ke": (quad8, lam0, mu0),
+                   "hex8_ke": (hexfix, hex_lam, hex_mu)}
+    u_quad8 = np.random.default_rng(9).standard_normal(quad8.n_dofs)
+
+    def quad_inputs(name, dtype):
+        m, lam, mu = quad_meshes[name]
+        C, k = m.conn.shape
+
+        def t(a):
+            return torch.as_tensor(np.array(np.broadcast_to(a, (C,))),
+                                   dtype=dtype, device=dev)
+
+        if name == "tet10_apply":
+            return (torch.as_tensor(m.coords, dtype=dtype, device=dev),
+                    torch.as_tensor(m.conn, device=dev),
+                    torch.as_tensor(u_quad8, dtype=dtype, device=dev),
+                    t(lam), t(mu))
+        coords = torch.as_tensor(m.coords[m.conn].reshape(-1, 3),
+                                 dtype=dtype, device=dev)
+        conn = torch.arange(C * k, dtype=torch.int32,
+                            device=dev).reshape(C, k)
+        return coords, conn, t(lam), t(mu)
+
+    counts_of = {"tet10_apply": ek.LAUNCHES, "tet4_ke": kk.LAUNCHES,
+                 "tet10_ke": kk.LAUNCHES, "hex8_ke": kk.LAUNCHES}
+    quad_errs = {}
+    for name, (kern, plain) in quad_fns.items():
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[1]
+            args = quad_inputs(name, dtype)
+            before = counts_of[name][name]
+            out_k = kern(*args)
+            torch.cuda.synchronize()
+            check(counts_of[name][name] == before + 1,
+                  f"{name} did not count its launch")
+            out_p = plain(*args)
+            check(out_k.shape == out_p.shape, f"{name} shape {out_k.shape}")
+            check(bool(torch.isfinite(out_k).all()), f"{name} not finite")
+            err = float((out_k - out_p).abs().max())
+            scale = float(out_p.abs().max())
+            quad_errs[(name, dname)] = err
+            print(f"[parity] {name} {dname} C={args[1].shape[0]} "
+                  f"max_abs_err={err:.3e} max|plain|={scale:.3e} "
+                  f"rel={err / scale:.3e} (tol {TOLERANCE[dname]:.0e})",
+                  flush=True)
+            check(err <= TOLERANCE[dname] * scale,
+                  f"{name} {dname} disagrees with its plain version")
+            del out_k, out_p, args
+    torch.cuda.empty_cache()
+
+    # 9b. the scale-4 tet10 beam through solve_system(p), no config: auto
+    # takes fp32 block-Jacobi CG under fp64 host refinement above 50k DOFs
+    p = setup(tt.generate_grid_tet(50, 16, 4, (0, 0, 0), BEAM_BOX),
+              torch.float32, order=2)
+    check(p.mesh.element_type == "tet10" and p.n_dofs == 89_991,
+          f"scale-4 tet10 beam has {p.n_dofs} DOFs")
+    r, secs, launches = solve(p, None, "tet10_apply")
+    rel = report("tet10_beam4_fp32", r, secs, launches,
+                 oracles["tet10_beam_scale_4"])
+    check(r.converged and r.refinement_passes > 0,
+          "scale-4 tet10 fp32 did not converge through refinement")
+    check(rel <= 1e-8, f"scale-4 tet10 fp32 rel_err {rel:.3e} > 1e-8")
+
+    # 9c. the scale-2 tet10 beam in fp64 (block-Jacobi CG forced: 13,005
+    # DOFs would go to the direct solve)
+    p = setup(tt.generate_grid_tet(25, 8, 2, (0, 0, 0), BEAM_BOX),
+              torch.float64, order=2)
+    r, secs, launches = solve(p, CG, "tet10_apply")
+    rel = report("tet10_beam2_fp64", r, secs, launches,
+                 oracles["tet10_beam_scale_2"])
+    check(r.converged and rel <= 1e-8,
+          f"scale-2 tet10 fp64 rel_err {rel:.3e} > 1e-8")
+
+    # 9d. the Tet4 cantilever fixture at interpolation_order=2, fp64 cold
+    # CG, against the port's host direct solve
+    p = setup(tt.import_mesh(os.path.join(
+        data, "beam_linear_volume_mesh.vtu")), torch.float64, order=2)
+    check(p.n_dofs == 50_274, f"tet10 fixture has {p.n_dofs} DOFs")
+    t = time.perf_counter()
+    ref = oracle_energy(p)
+    direct_s = time.perf_counter() - t
+    r, secs, launches = solve(p, CG, "tet10_apply")
+    rel = report("tet10_fixture_fp64", r, secs, launches, ref)
+    print(f"[tet10_fixture_fp64] iterations={r.iterations} (JAX package, "
+          f"tests/test_end_to_end.py:181: 10987) host_direct_s="
+          f"{direct_s:.1f}", flush=True)
+    check(r.converged and rel <= 1e-8,
+          f"tet10 fixture rel_err {rel:.3e} > 1e-8")
+
+    # 9e. full width: the scale-8 tet10 beam, 666,315 DOFs, by two
+    # independent routes that must agree to 1e-8 (the oracle file has no
+    # tet10_beam_scale_8): matrix-free fp64 block-Jacobi PCG on B7, and the
+    # block-ELL multigrid in fp32 (B4/B5, hi/lo, fp64 refinement)
+    os.environ["TOPOPT_MG_CACHE_DIR"] = "off"
+    p = setup(quad8, torch.float64)
+    r_bj, secs, launches = solve(p, CG, "tet10_apply")
+    report("tet10_beam8_fp64_bj", r_bj, secs, launches, r_bj.energy)
+    print(f"[tet10_beam8_fp64_bj] dofs={p.n_dofs} build_operator_s="
+          f"{r_bj.timings['build_operator']:.3f} solve_s="
+          f"{r_bj.solve_time:.3f}", flush=True)
+    check(r_bj.converged, "scale-8 tet10 block-Jacobi did not converge")
+    p32 = setup(quad8, torch.float32)
+    r_mg, secs, launches = solve(p32, MG, "bell_matvec")
+    rel, _ = bell_report("tet10_beam8_fp32_mg", p32, r_mg, secs, launches,
+                         r_bj.energy)
+    print(f"[tet10_beam8] energies block_jacobi_fp64={r_bj.energy!r} "
+          f"multigrid_fp32={r_mg.energy!r} rel_diff={rel:.3e} (tol 1e-08); "
+          f"iterations {r_bj.iterations} / {r_mg.iterations}", flush=True)
+    check(r_mg.converged and rel <= 1e-8,
+          f"scale-8 tet10 routes disagree by {rel:.3e}")
+    del p, p32, r_bj, r_mg
+    tt_api._SKEL_RAM_CACHE.clear()
+
+    # 9f. stored mode: the Ke batch built once by B6 / B8, the matvec a
+    # batched product
+    p = setup(beam, torch.float64, mode="stored")
+    r, secs, launches = solve(p, None, "tet4_ke")
+    rel = report("stored_beam8_tet4_fp64", r, secs, launches,
+                 oracles["tet_beam_scale_8"])
+    check(r.converged and rel <= 1e-8, f"stored tet4 rel_err {rel:.3e}")
+    p = setup(tt.generate_grid_tet(50, 16, 4, (0, 0, 0), BEAM_BOX),
+              torch.float64, order=2, mode="stored")
+    r, secs, launches = solve(p, None, "tet10_ke")
+    rel = report("stored_beam4_tet10_fp64", r, secs, launches,
+                 oracles["tet10_beam_scale_4"])
+    check(r.converged and rel <= 1e-8, f"stored tet10 rel_err {rel:.3e}")
+    p_s = setup(hexfix, torch.float64, hex_density, mode="stored")
+    r_s, secs, launches = solve(p_s, CG, "hex8_ke")
+    p_o = setup(hexfix, torch.float64, hex_density)
+    r_o, secs_o, launches_o = solve(p_o, CG, "hex8_apply")
+    rel = report("stored_simp_hex8_fp64", r_s, secs, launches, r_o.energy)
+    report("otf_simp_hex8_fp64", r_o, secs_o, launches_o, r_o.energy)
+    check(r_s.converged and rel <= 1e-10,
+          f"stored and otf SIMP Hex8 differ by {rel:.3e} > 1e-10")
+    op = p_s.build_operator()
+    kk.reset_launch_counts()
+    op2 = op.with_material(0.5 * op.lam, 0.5 * op.mu)
+    torch.cuda.synchronize()
+    swap_launches = dict(kk.LAUNCHES)
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        p_s.n_dofs), device=dev)
+    swap_err = float((op2.matvec_raw(u) - 0.5 * op.matvec_raw(u)).abs().max()
+                     / (0.5 * op.matvec_raw(u)).abs().max())
+    print(f"[stored] with_material swap: Ke launches {swap_launches} "
+          f"(one hex8_ke expected), |K(0.5 E) u - 0.5 K u|/|0.5 K u|="
+          f"{swap_err:.3e}", flush=True)
+    check(swap_launches == {"tet4_ke": 0, "hex8_ke": 1, "tet10_ke": 0},
+          "with_material did not cost exactly one Ke launch")
+    check(swap_err <= 1e-12, "with_material did not rebuild the Ke batch")
+    del p, p_s, p_o, op, op2
+
+    # 9g. a small hex20 box (3x3x3 rule, the batched plain route on the
+    # card in both packages): CG against the host direct solve
+    p = setup(tt.generate_grid_hex(12, 4, 2, (0, 0, 0), BEAM_BOX),
+              torch.float64, order=2)
+    check(p.mesh.element_type == "hex20" and p.quad_order == 3,
+          "the hex20 box did not take the 3x3x3 rule")
+    rd = tt.solve_system(p, tt.SolverConfig(method="direct"))
+    t = time.perf_counter()
+    rc = tt.solve_system(p, CG)
+    rel = abs(rc.energy - rd.energy) / abs(rd.energy)
+    print(f"[hex20_box_fp64] dofs={p.n_dofs} cg_iterations={rc.iterations} "
+          f"energy={rc.energy!r} direct={rd.energy!r} rel_err={rel:.3e} "
+          f"solve_s={time.perf_counter() - t:.3f}", flush=True)
+    check(rc.method == "cg" and rc.converged and rel <= 1e-8,
+          f"hex20 CG rel_err {rel:.3e} > 1e-8")
+
+    # 9h. kernel times at the 9a shapes, beside their bound, the plain
+    # version and a library call: for B7 a torch.bmm of the stored Ke
+    # batch; for B6/B8 a torch.bmm of the per-point B^T and w det D B
+    # (the product only, not the sum over points)
+    from topopteval_tpu_torch.ops.elements import physical_gradients
+
+    def voigt_pair(coords_e, lam, mu, element_type, order):
+        """(B^T [C q, 3k, 6], w det D B [C q, 6, 3k]) per point."""
+        g, wdet = physical_gradients(coords_e, element_type, order)
+        C, q, k, _ = g.shape
+        B = g.new_zeros((C, q, 6, k, 3))
+        for a in range(3):
+            B[:, :, a, :, a] = g[..., a]
+        for row, (a, b) in enumerate(((0, 1), (1, 2), (0, 2)), start=3):
+            B[:, :, row, :, a] = g[..., b]
+            B[:, :, row, :, b] = g[..., a]
+        B = B.reshape(C, q, 6, 3 * k)
+        D = g.new_zeros((C, 6, 6))
+        D[:, :3, :3] = lam[:, None, None]
+        for a in range(3):
+            D[:, a, a] += 2.0 * mu
+            D[:, 3 + a, 3 + a] = mu
+        DB = wdet[..., None, None] * torch.matmul(D[:, None], B)
+        return (B.transpose(-1, -2).reshape(C * q, 3 * k, 6).contiguous(),
+                DB.reshape(C * q, 6, 3 * k).contiguous())
+
+    etype_of = {"tet4_ke": ("tet4", 1), "hex8_ke": ("hex8", 2),
+                "tet10_ke": ("tet10", 2), "tet10_apply": ("tet10", 2)}
+    for name, (kern, plain) in quad_fns.items():
+        rec = {"name": name, "route": "cuda",
+               "source": SOURCE if name == "tet10_apply" else KE_SOURCE,
+               "replaces": REPLACES[name],
+               "launches": main_path_launches[name]}
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[1]
+            args = quad_inputs(name, dtype)
+            coords, conn, lam, mu = args[0], args[1], args[-2], args[-1]
+            C, k = conn.shape
+            item = coords.element_size()
+            etype, order = etype_of[name]
+            table = (0 if etype == "tet4" else
+                     ek.rule_table(etype, dtype, dev).numel() * item)
+            out_vals = C * k * 3 if name == "tet10_apply" else C * 9 * k * k
+            nbytes = (coords.numel() * item + conn.numel() * 4
+                      + 2 * C * item + table + out_vals * item
+                      + (args[2].numel() * item if name == "tet10_apply"
+                         else 0))
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = FLOPS_PER_ELEMENT[name] * C / PEAK_FLOPS[dname]
+            if name == "tet10_apply":
+                ke = kk.tet10_ke(coords, conn, lam, mu)
+                ue = args[2].reshape(-1, 3)[conn.long()].reshape(C, 30, 1)
+                lib_args = (ke, ue)
+                lib_out = torch.bmm(ke, ue).reshape(C, 10, 3)
+                want = plain(*args)
+            else:
+                lib_args = voigt_pair(coords[conn.long()], lam, mu, etype,
+                                      order)
+                lib_out = torch.bmm(*lib_args).reshape(
+                    C, -1, 3 * k, 3 * k).sum(1)
+                want = plain(*args)
+            lib_err = float((lib_out - want).abs().max() / want.abs().max())
+            check(lib_err <= 10 * TOLERANCE[dname],
+                  f"{name} library yardstick is off by {lib_err:.3e}")
+            del lib_out, want
+            vals = {
+                "ms": time_ms(lambda: kern(*args), graph=True),
+                "plain_ms": time_ms(lambda: plain(*args), reps=11, inner=2),
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                # a few products per graph: each allocates its output
+                "library_ms": time_ms(lambda: torch.bmm(*lib_args),
+                                      inner=4, graph=True),
+                "max_abs_err": quad_errs[(name, dname)],
+                "eager_ms": time_ms(lambda: kern(*args)),
+            }
+            del lib_args, args
+            torch.cuda.empty_cache()
+            print(f"[time] {name} {dname} C={C} " + " ".join(
+                f"{key}={val}" for key, val in vals.items())
+                + f" library_rel_err={lib_err:.2e}", flush=True)
+            if dtype == torch.float32:
+                rec.update(vals)
+                rec["dtype"] = "float32"
+            else:
+                rec.update({f"{key}_fp64": val for key, val in vals.items()})
+        records.append(rec)
+    for name in quad_fns:
+        check(main_path_launches[name] > 0,
+              f"{name} was not launched on the main path")
 
     print(f"[device] {smi}")
     print(json.dumps({"kernels": records}))

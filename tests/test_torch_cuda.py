@@ -10,7 +10,9 @@ with
 Tolerances are relative to the largest plain-version entry: 1e-12 in
 float64 and 1e-5 in float32 (the kernels contract multiply-adds into
 FMAs and sum in another order than the batched plain version).  The two
-stencil kernels share their arithmetic and must agree bit for bit.
+stencil kernels share their arithmetic and must agree bit for bit.  The
+tet10 apply and the Ke-batch kernels run on curved tet10 elements (mid-edge
+nodes off their edges) with per-element materials.
 """
 
 import numpy as np
@@ -305,3 +307,199 @@ def test_bell_solve_on_cuda_matches_cpu(cuda, dtype, monkeypatch):
         assert out["cuda"].iterations == out["cpu"].iterations
     assert abs(out["cuda"].energy - out["cpu"].energy) \
         <= 1e-9 * out["cpu"].energy
+
+
+# ---------------------------------------------------------------------------
+# tet10 apply (csrc/element_apply.cu) and Ke batches (csrc/element_ke.cu)
+# ---------------------------------------------------------------------------
+
+
+def _curved_inputs(element_type, dtype, device, nx=5, ny=3, nz=2, seed=0):
+    """A box of ``element_type`` whose nodes are moved and, for tet10,
+    whose mid-edge nodes are moved off their edges (curved elements), with
+    per-element materials; C is not a multiple of any kernel's block."""
+    rng = np.random.default_rng(seed)
+    gen = tt.generate_grid_hex if element_type == "hex8" else \
+        tt.generate_grid_tet
+    mesh = gen(nx, ny, nz, (0, 0, 0), (2.0 * nx, 1.5 * ny, 1.0 * nz))
+    if element_type == "tet10":
+        mesh = mesh.to_quadratic()
+    coords = mesh.coords + rng.uniform(-0.1, 0.1, mesh.coords.shape)
+    C = mesh.n_cells
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    return (t(coords), t(mesh.conn, torch.int32),
+            t(rng.standard_normal(mesh.n_dofs)),
+            t(rng.uniform(0.1, 2.0, C)), t(rng.uniform(0.1, 2.0, C)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tet10_apply_matches_plain_version(cuda, dtype):
+    args = _curved_inputs("tet10", dtype, cuda)
+    before = ek.LAUNCHES["tet10_apply"]
+    out = ek.tet10_apply(*args)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES["tet10_apply"] == before + 1
+    ref = ek.tet10_apply_reference(*args)
+    assert out.shape == ref.shape == (args[1].shape[0], 10, 3)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("element_type", ["tet4", "hex8", "tet10"])
+def test_ke_kernel_matches_plain_version(cuda, element_type, dtype):
+    from topopteval_tpu_torch.ops import ke_kernels as kk
+    coords, conn, _, lam, mu = _curved_inputs(element_type, dtype, cuda)
+    name = f"{element_type}_ke"
+    before = dict(kk.LAUNCHES)
+    out = kk.KE_KERNELS[element_type](coords, conn, lam, mu)
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES[name] == before[name] + 1
+    assert sum(kk.LAUNCHES.values()) == sum(before.values()) + 1
+    ref = getattr(kk, f"{name}_reference")(coords, conn, lam, mu)
+    k = conn.shape[1]
+    assert out.shape == ref.shape == (conn.shape[0], 3 * k, 3 * k)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+
+
+def test_element_stiffness_dispatch_on_cuda(cuda):
+    """tet4 at any order and hex8/tet10 at order 2 go to the kernels; hex8
+    at order 3 and hex20 take the batched plain route on the card."""
+    from topopteval_tpu_torch.ops import ke_kernels as kk
+    from topopteval_tpu_torch.ops.elements import element_stiffness
+    for element_type, order, kernel in (("tet4", 1, "tet4_ke"),
+                                        ("tet4", 3, "tet4_ke"),
+                                        ("hex8", 2, "hex8_ke"),
+                                        ("tet10", 2, "tet10_ke"),
+                                        ("hex8", 3, None)):
+        coords, conn, _, lam, mu = _curved_inputs(
+            element_type, torch.float64, cuda, nx=3, ny=2, nz=1)
+        ce = coords[conn.long()]
+        before = dict(kk.LAUNCHES)
+        ke = element_stiffness(ce, lam, mu, element_type, order)
+        plain = element_stiffness(ce, lam, mu, element_type, order,
+                                  use_kernel=False)
+        torch.cuda.synchronize()
+        launched = {n for n in kk.LAUNCHES if kk.LAUNCHES[n] > before[n]}
+        assert launched == ({kernel} if kernel else set())
+        assert float((ke - plain).abs().max()) \
+            <= 1e-12 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("name", ["tet10_apply", "tet4_ke", "hex8_ke",
+                                  "tet10_ke"])
+def test_new_kernels_handle_an_empty_batch(cuda, name):
+    from topopteval_tpu_torch.ops import ke_kernels as kk
+    element_type = name.split("_")[0]
+    coords, _, u, _, _ = _curved_inputs(element_type, torch.float64, cuda,
+                                        nx=2, ny=1, nz=1)
+    k = {"tet4": 4, "hex8": 8, "tet10": 10}[element_type]
+    empty = torch.zeros((0, k), dtype=torch.int32, device=cuda)
+    none = torch.zeros(0, dtype=torch.float64, device=cuda)
+    counts = ek.LAUNCHES if name == "tet10_apply" else kk.LAUNCHES
+    before = counts[name]
+    if name == "tet10_apply":
+        out = ek.tet10_apply(coords, empty, u, none, none)
+        assert out.shape == (0, 10, 3)
+    else:
+        out = kk.KE_KERNELS[element_type](coords, empty, none, none)
+        assert out.shape == (0, 3 * k, 3 * k)
+    assert counts[name] == before
+
+
+def test_new_wrappers_reject_bad_inputs(cuda):
+    from topopteval_tpu_torch.ops import ke_kernels as kk
+    coords, conn, u, lam, mu = _curved_inputs("tet10", torch.float64, cuda)
+    with pytest.raises(TypeError):
+        ek.tet10_apply(coords, conn.long(), u, lam, mu)
+    with pytest.raises(TypeError):
+        ek.tet10_apply(coords, conn, u.float(), lam, mu)
+    with pytest.raises(TypeError):
+        kk.tet10_ke(coords.half(), conn, lam.half(), mu.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        kk.tet10_ke(coords, conn, lam.repeat(2)[::2], mu)
+    with pytest.raises(ValueError, match="on cpu"):
+        kk.tet10_ke(coords, conn, lam.cpu(), mu)
+    with pytest.raises(ValueError):
+        kk.tet10_ke(coords, conn[:, :4].contiguous(), lam, mu)
+    with pytest.raises(ValueError):
+        ek.tet10_apply(coords, conn, u[3:], lam, mu)
+
+
+def test_failed_build_or_launch_raises(cuda, monkeypatch, tmp_path):
+    """No quiet fallback: a source that does not compile, and a launch
+    whose CUDA call reports an error, each raise, and count no launch."""
+    from topopteval_tpu_torch import _build
+    from topopteval_tpu_torch.ops import ke_kernels as kk
+    coords, conn, _, lam, mu = _curved_inputs("tet4", torch.float64, cuda)
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "element_ke.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(src))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_LOADED", {})
+    kk._library.cache_clear()
+    before = dict(kk.LAUNCHES)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            kk.tet4_ke(coords, conn, lam, mu)
+    finally:
+        kk._library.cache_clear()
+    monkeypatch.undo()
+
+    class _Failing:
+        """A library whose every entry point reports cudaErrorInvalidValue."""
+
+        def __getattr__(self, name):
+            if name == "element_ke_error_string":
+                return lambda err: b"invalid argument"
+            return lambda *args: 1
+
+    monkeypatch.setattr(kk, "_library", lambda: _Failing())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kk.tet4_ke(coords, conn, lam, mu)
+    assert kk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("mode", ["otf", "stored"])
+@pytest.mark.parametrize("element_type", ["tet4", "hex8", "tet10"])
+def test_quadratic_and_stored_operators_on_cuda_match_cpu(cuda, mode,
+                                                          element_type):
+    gen = tt.generate_grid_hex if element_type == "hex8" else \
+        tt.generate_grid_tet
+    mesh = gen(6, 3, 2, (0, 0, 0), (6.0, 3.0, 2.0))
+    u = None
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = tt.setup_problem(mesh, interpolation_order=2 if element_type
+                             == "tet10" else 1, dtype=torch.float64,
+                             mode=mode, device=device)
+        if u is None:
+            u = np.random.default_rng(1).standard_normal(p.n_dofs)
+        tt.assemble_stiffness_matrix(p, *tt.lame_parameters(1.0, 0.3))
+        tt.apply_fixed_boundary(p, tt.nodes_at_plane(p.mesh, 0, 0.0))
+        op = p.build_operator()
+        assert (op.ke is None) == (mode == "otf")
+        out[device] = op.matvec(torch.as_tensor(u, device=device)).cpu()
+    scale = float(out["cpu"].abs().max())
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-12 * scale
+
+
+def test_with_material_costs_one_ke_launch(cuda):
+    from topopteval_tpu_torch.ops import ke_kernels as kk
+    mesh = tt.generate_grid_tet(6, 3, 2, (0, 0, 0), (6.0, 3.0, 2.0))
+    p = tt.setup_problem(mesh, interpolation_order=2, dtype=torch.float64,
+                         mode="stored", device=cuda)
+    tt.assemble_stiffness_matrix(p, *tt.lame_parameters(1.0, 0.3))
+    kk.reset_launch_counts()
+    op = p.build_operator()
+    assert kk.LAUNCHES["tet10_ke"] == 1
+    op2 = op.with_material(op.lam * 2.0, op.mu * 2.0)
+    assert kk.LAUNCHES["tet10_ke"] == 2
+    u = torch.randn(p.n_dofs, dtype=torch.float64, device=cuda)
+    assert float((op2.matvec_raw(u) - 2.0 * op.matvec_raw(u)).abs().max()) \
+        <= 1e-12 * float(op2.matvec_raw(u).abs().max())

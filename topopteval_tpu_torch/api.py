@@ -155,9 +155,12 @@ def setup_problem(mesh: Mesh, interpolation_order: int = 1,
                   device="cuda") -> Problem:
     """reference: FiniteElementAnalysis.jl:151-185.
 
-    ``dtype`` defaults to float32, the JAX package's accelerator default;
-    ``torch.float64`` gives fp64 throughout.  ``device`` defaults to
-    ``"cuda"`` and must exist."""
+    ``interpolation_order=2`` on a tet4 or hex8 mesh refines it to tet10 /
+    hex20 (``Mesh.to_quadratic``; the reference applies the order to both
+    families, FiniteElementAnalysis.jl:160-163).  ``dtype`` defaults to
+    float32, the JAX package's accelerator default; ``torch.float64``
+    gives fp64 throughout.  ``mode`` is the operator's, ``"otf"`` or
+    ``"stored"``.  ``device`` defaults to ``"cuda"`` and must exist."""
     from .mesh import SOLID_TYPES
     if mesh.element_type not in SOLID_TYPES:
         raise ValueError(
@@ -166,9 +169,11 @@ def setup_problem(mesh: Mesh, interpolation_order: int = 1,
             "mesh whose dominant cell type is one of these")
     if interpolation_order not in (1, 2):
         raise ValueError("interpolation_order must be 1 or 2")
-    if interpolation_order == 2 or mesh.element_type in ("tet10", "hex20"):
-        raise NotImplementedError(
-            "quadratic elements are not ported yet (ROADMAP Queue A item 7)")
+    if interpolation_order == 2:
+        if mesh.element_type in ("tet4", "hex8"):
+            mesh = mesh.to_quadratic()
+        else:
+            log(f"mesh is already quadratic ({mesh.element_type})")
     log(f"Setting up problem with {mesh.element_type} elements")
     log(f"Number of DOFs: {mesh.n_dofs}")
     return Problem(mesh=mesh, interpolation_order=interpolation_order,
@@ -180,11 +185,12 @@ def problem_from_numpy(state: dict, device="cuda",
     """A :class:`Problem` from plain NumPy state, e.g. one taken from
     another implementation so both solve the same problem.
 
-    Keys: ``coords`` [N,3], ``conn`` [C,k], ``element_type``, ``lam`` and
-    ``mu`` [C], ``f`` [3N], ``fixed_dofs`` (a list of DOF-id arrays, one
-    per constraint), and optionally ``density`` [C], ``quad_order`` and
-    ``structured_info`` (a generated box's provenance, which selects the
-    stencil multigrid route).
+    Keys: ``coords`` [N,3], ``conn`` [C,k], ``element_type`` (any solid
+    type, quadratic ones included), ``lam`` and ``mu`` [C], ``f`` [3N],
+    ``fixed_dofs`` (a list of DOF-id arrays, one per constraint), and
+    optionally ``density`` [C], ``quad_order``, ``mode`` (the operator's,
+    ``"otf"`` by default) and ``structured_info`` (a generated box's
+    provenance, which selects the stencil multigrid route).
     """
     mesh = Mesh(state["coords"], state["conn"], state["element_type"])
     info = state.get("structured_info")
@@ -193,7 +199,8 @@ def problem_from_numpy(state: dict, device="cuda",
             "dims": tuple(int(d) for d in info["dims"]),
             "lo": tuple(float(v) for v in info["lo"]),
             "hi": tuple(float(v) for v in info["hi"])}
-    problem = setup_problem(mesh, dtype=dtype, device=device)
+    problem = setup_problem(mesh, dtype=dtype, device=device,
+                            mode=state.get("mode", "otf"))
     if state.get("quad_order") is not None:
         problem.quad_order = int(state["quad_order"])
     C = mesh.n_cells

@@ -46,6 +46,30 @@
 //   physical gradients g_k are recomputed in the force loop rather than
 //   kept (24 registers saved), and the quadrature loop is not unrolled,
 //   to hold register pressure down.
+//
+// tet10_apply replaces _make_iso_apply_kernel (topopteval_tpu/ops/pallas_kernels.py:343,
+//             via _iso_apply :474 and tet10_apply_pallas :544).
+//             Isoparametric with the 4-point order-2 rule: at each point
+//             J, J^-1 and det (same formulas and guard), sigma, and
+//             f += w det sigma g.  J varies from point to point (mid-edge
+//             nodes may be curved), so nothing is taken as constant.  dN
+//             [4][10][3] and w [4] arrive as a table argument built from
+//             ops/elements.element_tables.
+//   Bound: memory.  Per element it reads 40 B of conn and 2 values of
+//   lam/mu and writes 30 values, and shares ~1.4 node rows of coords and
+//   u: ~200 B (fp32), so ~31 MB at 153,600 elements, 0.009 ms at 3.35
+//   TB/s (fp64 ~0.017 ms).  The function needs about 2,600 flops per
+//   element (itemised in chip_smoke.py): 0.006 ms at 67 TFLOP/s fp32,
+//   0.012 ms at 34 TFLOP/s fp64, both under the byte time.
+//   Design: one thread per element would hold coords and u (60 values),
+//   g (30), f (30) and J/J^-1: past 255 registers in fp64.  Instead four
+//   threads take an element, one per point; the block stages its
+//   elements' coords and u rows in shared memory (read through conn by
+//   the whole block, so the conn loads coalesce); each thread forms its
+//   point's J, J^-1, grad u and sigma, recomputes g_k in the force loop,
+//   and the four point contributions to f_k are summed by two xor
+//   shuffles inside the warp.  Registers hold J^-1, grad u, sigma and one
+//   g_k at a time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +107,8 @@ template <> __device__ __forceinline__ double hex_dn<double>(int q, int k, int b
 
 constexpr int TET4_THREADS = 256;
 constexpr int HEX8_THREADS = 128;
+constexpr int TET10_ELEMS = 32;                 // 4 threads per element
+constexpr int TET10_THREADS = 4 * TET10_ELEMS;
 
 template <typename T>
 __global__ void __launch_bounds__(TET4_THREADS)
@@ -252,6 +278,104 @@ hex8_apply_kernel(const T* __restrict__ coords, const int4* __restrict__ conn,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(TET10_THREADS)
+tet10_apply_kernel(const T* __restrict__ coords, const int* __restrict__ conn,
+                   const T* __restrict__ u, const T* __restrict__ lam,
+                   const T* __restrict__ mu, const T* __restrict__ table,
+                   T* __restrict__ out, int64_t C) {
+    __shared__ T s_dn[4][10][3];
+    __shared__ T s_w[4];
+    __shared__ T s_x[TET10_ELEMS][10][3];
+    __shared__ T s_u[TET10_ELEMS][10][3];
+    const int64_t c0 = (int64_t)blockIdx.x * TET10_ELEMS;
+    const int ne = (int)(C - c0 < TET10_ELEMS ? C - c0 : TET10_ELEMS);
+    const int tid = threadIdx.x;
+    for (int t = tid; t < 120; t += blockDim.x) (&s_dn[0][0][0])[t] = table[t];
+    if (tid < 4) s_w[tid] = table[120 + tid];
+    for (int t = tid; t < ne * 10; t += blockDim.x) {
+        const int e = t / 10, k = t - 10 * e;
+        const int64_t n = conn[(c0 + e) * 10 + k];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            s_x[e][k][a] = coords[3 * n + a];
+            s_u[e][k][a] = u[3 * n + a];
+        }
+    }
+    __syncthreads();
+    // lanes of a missing element (the ragged last block) shadow element 0
+    // so that every lane takes part in the shuffles; they write nothing
+    const int el = tid >> 2, q = tid & 3;
+    const bool live = el < ne;
+    const int e = live ? el : 0;
+    T J[3][3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+            T s = T(0);
+#pragma unroll
+            for (int k = 0; k < 10; ++k) s += s_x[e][k][a] * s_dn[q][k][b];
+            J[a][b] = s;
+        }
+    const T A = J[1][1] * J[2][2] - J[1][2] * J[2][1];
+    const T B = J[0][2] * J[2][1] - J[0][1] * J[2][2];
+    const T Cc = J[0][1] * J[1][2] - J[0][2] * J[1][1];
+    const T det = J[0][0] * A + J[1][0] * B + J[2][0] * Cc;
+    const T idet = T(1) / (det == T(0) ? T(1) : det);
+    const T inv[3][3] = {
+        {A * idet, B * idet, Cc * idet},
+        {(J[1][2] * J[2][0] - J[1][0] * J[2][2]) * idet,
+         (J[0][0] * J[2][2] - J[0][2] * J[2][0]) * idet,
+         (J[0][2] * J[1][0] - J[0][0] * J[1][2]) * idet},
+        {(J[1][0] * J[2][1] - J[1][1] * J[2][0]) * idet,
+         (J[0][1] * J[2][0] - J[0][0] * J[2][1]) * idet,
+         (J[0][0] * J[1][1] - J[0][1] * J[1][0]) * idet}};
+    T gu[3][3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b) gu[a][b] = T(0);
+#pragma unroll 2
+    for (int k = 0; k < 10; ++k) {
+        const T* dn = s_dn[q][k];
+        T gk[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+            gk[a] = dn[0] * inv[0][a] + dn[1] * inv[1][a] + dn[2] * inv[2][a];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int b = 0; b < 3; ++b) gu[a][b] += s_u[e][k][a] * gk[b];
+    }
+    const T m = mu[c0 + e];
+    const T lam_tr = lam[c0 + e] * (gu[0][0] + gu[1][1] + gu[2][2]);
+    const T wdet = s_w[q] * det;
+    T sig[3][3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+            sig[a][b] = wdet * (m * (gu[a][b] + gu[b][a]) +
+                                (a == b ? lam_tr : T(0)));
+    T* o = out + (c0 + e) * 30;
+#pragma unroll 2
+    for (int k = 0; k < 10; ++k) {
+        const T* dn = s_dn[q][k];
+        T gk[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+            gk[a] = dn[0] * inv[0][a] + dn[1] * inv[1][a] + dn[2] * inv[2][a];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            T f = sig[a][0] * gk[0] + sig[a][1] * gk[1] + sig[a][2] * gk[2];
+            f += __shfl_xor_sync(0xffffffffu, f, 1);
+            f += __shfl_xor_sync(0xffffffffu, f, 2);
+            if (live && (k & 3) == q) o[3 * k + a] = f;
+        }
+    }
+}
+
+template <typename T>
 int launch_tet4(const void* coords, const void* conn, const void* u,
                 const void* lam, const void* mu, void* out, long long C,
                 void* stream) {
@@ -279,11 +403,27 @@ int launch_hex8(const void* coords, const void* conn, const void* u,
     return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_tet10(const void* coords, const void* conn, const void* u,
+                 const void* lam, const void* mu, const void* table, void* out,
+                 long long C, void* stream) {
+    if (C > 0) {
+        const long long blocks = (C + TET10_ELEMS - 1) / TET10_ELEMS;
+        tet10_apply_kernel<T><<<(unsigned)blocks, TET10_THREADS, 0,
+                                (cudaStream_t)stream>>>(
+            (const T*)coords, (const int*)conn, (const T*)u, (const T*)lam,
+            (const T*)mu, (const T*)table, (T*)out, (int64_t)C);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes in ops/element_kernels.py.  Every
 // pointer is a device pointer; conn must be 16-byte aligned.  Each entry
-// point returns cudaGetLastError() after its launch.
+// point returns cudaGetLastError() after its launch.  tet10_apply's
+// ``table`` holds dN [4][10][3] then w [4] of the 4-point rule; its conn
+// needs no alignment.
 extern "C" {
 
 int tet4_apply_f32(const void* coords, const void* conn, const void* u,
@@ -308,6 +448,20 @@ int hex8_apply_f64(const void* coords, const void* conn, const void* u,
                    const void* lam, const void* mu, void* out, long long C,
                    void* stream) {
     return launch_hex8<double>(coords, conn, u, lam, mu, out, C, stream);
+}
+
+int tet10_apply_f32(const void* coords, const void* conn, const void* u,
+                    const void* lam, const void* mu, const void* table,
+                    void* out, long long C, void* stream) {
+    return launch_tet10<float>(coords, conn, u, lam, mu, table, out, C,
+                               stream);
+}
+
+int tet10_apply_f64(const void* coords, const void* conn, const void* u,
+                    const void* lam, const void* mu, const void* table,
+                    void* out, long long C, void* stream) {
+    return launch_tet10<double>(coords, conn, u, lam, mu, table, out, C,
+                                stream);
 }
 
 const char* element_apply_error_string(int err) {

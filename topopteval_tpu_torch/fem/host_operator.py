@@ -1,6 +1,7 @@
 """Exact float64 host twin of the masked fine operator (counterpart of
 ``_HostFineOperator.__init__``, ``_ke64`` and ``matvec64`` in
-topopteval_tpu/fem/multigrid.py:822-960).
+topopteval_tpu/fem/multigrid.py:822-960), and the chunked host Ke batch
+that it and ``assemble_scipy`` share.
 
 Mixed-precision refinement (api._refined_generic) evaluates every outer
 residual with this NumPy matvec, so a float32 device solve can certify
@@ -10,26 +11,46 @@ tolerances below float32's own reach.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..mesh import Mesh
-from ..ops.elements import element_tables
+from ..ops.elements import element_stiffness
 
-_CHUNK = 131072     # elements per Ke chunk (bounds the einsum temporaries)
+#: Ke entries per chunk of the host build.  The plain einsum route holds
+#: about four Ke-sized float64 temporaries per chunk; this bounds each to
+#: ~240 MB (32,768 tet10 elements, the JAX operator's _REDUCE_CHUNK).  At
+#: full width the tet10 Ke batch alone is 1.1 GB, its temporaries several
+#: times that.
+_KE_CHUNK_ENTRIES = 32768 * 900
+_CHUNK = 131072     # elements per chunk of the host matvec
+
+
+def host_element_stiffness(mesh: Mesh, lam_e, mu_e, order: int
+                           ) -> np.ndarray:
+    """Exact float64 Ke batch [C, 3k, 3k] of the whole mesh, built on the
+    host in chunks through the plain ``element_stiffness``."""
+    C, k = mesh.conn.shape
+    ek = 3 * k
+    lam = torch.from_numpy(np.array(np.broadcast_to(
+        np.asarray(lam_e, np.float64), (C,))))
+    mu = torch.from_numpy(np.array(np.broadcast_to(
+        np.asarray(mu_e, np.float64), (C,))))
+    step = max(1, _KE_CHUNK_ENTRIES // (ek * ek))
+    ke = np.empty((C, ek, ek), np.float64)
+    for c0 in range(0, C, step):
+        sl = slice(c0, c0 + step)
+        coords_e = torch.from_numpy(mesh.coords[mesh.conn[sl]])
+        ke[sl] = element_stiffness(coords_e, lam[sl], mu[sl],
+                                   mesh.element_type, order).numpy()
+    return ke
 
 
 class HostFineOperator:
     """float64 NumPy ``m*K*m*u + (1-m)*u`` with a stored Ke batch."""
 
     def __init__(self, mesh: Mesh, lam_e, mu_e, mask, order: int):
-        _, dN, w = element_tables(mesh.element_type, order)
-        X = mesh.coords[mesh.conn]                      # [C,k,3]
-        J = np.einsum("cka,qkb->cqab", X, dN, optimize=True)
-        detJ = np.linalg.det(J)
-        invJ = np.linalg.inv(
-            np.where((detJ == 0)[..., None, None], np.eye(3), J))
-        self.g = np.einsum("qkb,cqba->cqka", dN, invJ,
-                           optimize=True)     # [C,q,k,3]
-        self.wdet = w[None, :] * detJ                   # [C,q]
+        self.mesh = mesh
+        self.order = order
         self.conn = mesh.conn.astype(np.int64)
         self.n_nodes = mesh.n_nodes
         self.lam_e = np.asarray(lam_e, np.float64)
@@ -39,26 +60,10 @@ class HostFineOperator:
 
     def _ke64(self) -> np.ndarray:
         """Exact fp64 Ke batch [C, 3k, 3k], built once."""
-        if self._ke_cache64 is not None:
-            return self._ke_cache64
-        C, q, k, _ = self.g.shape
-        ek = 3 * k
-        ke = np.empty((C, ek, ek), np.float64)
-        eye = np.eye(3)
-        for c0 in range(0, C, _CHUNK):
-            gs = self.g[c0:c0 + _CHUNK]
-            wl = (self.wdet * self.lam_e[:, None])[c0:c0 + _CHUNK]
-            wm = (self.wdet * self.mu_e[:, None])[c0:c0 + _CHUNK]
-            K1 = np.einsum("cq,cqia,cqjb->ciajb", wl, gs, gs,
-                           optimize=True)
-            K2 = np.einsum("cq,cqib,cqja->ciajb", wm, gs, gs,
-                           optimize=True)
-            dots = np.einsum("cq,cqid,cqjd->cij", wm, gs, gs,
-                             optimize=True)
-            K3 = dots[:, :, None, :, None] * eye[None, None, :, None, :]
-            ke[c0:c0 + _CHUNK] = (K1 + K2 + K3).reshape(-1, ek, ek)
-        self._ke_cache64 = ke
-        return ke
+        if self._ke_cache64 is None:
+            self._ke_cache64 = host_element_stiffness(
+                self.mesh, self.lam_e, self.mu_e, self.order)
+        return self._ke_cache64
 
     def matvec64(self, u: np.ndarray) -> np.ndarray:
         """Exact fp64 masked matvec (m*K*m*u + (1-m)*u)."""

@@ -1,10 +1,18 @@
-"""Matrix-free global stiffness operator with Dirichlet masking
-(counterpart of ``topopteval_tpu.fem.operator``, ``otf`` mode).
+"""Global stiffness operator with Dirichlet masking (counterpart of
+``topopteval_tpu.fem.operator``).
 
 The global K never materializes: ``A(u) = scatter(f_e(gather(u)))``, with
-the element apply done by the fused kernels of ops/element_kernels.py and
-the scatter by the deterministic gather-sum of ops/scatter.py.  Dirichlet
-constraints are a free-DOF mask:
+the scatter by the deterministic gather-sum of ops/scatter.py.  Two modes,
+as in the JAX package:
+
+- ``otf`` (default): the element apply recomputes the geometry each
+  matvec, in the fused kernels of ops/element_kernels.py (tet4, hex8,
+  tet10; hex20 takes the batched plain apply, as it does there);
+- ``stored``: the Ke batch is built once (ops/elements.element_stiffness,
+  which runs the Ke-batch kernels on the card) and each matvec is one
+  batched product ``Ke @ u_e``.
+
+Dirichlet constraints are a free-DOF mask:
 
     A'(u) = m * A(m * u) + (1 - m) * u
 
@@ -20,59 +28,94 @@ import numpy as np
 import torch
 
 from ..mesh import DIM, DeviceMesh, Mesh, element_dofs
-from ..ops.element_kernels import hex8_apply, tet4_apply
-from ..ops.elements import (element_stiffness, element_volumes,
+from .host_operator import host_element_stiffness
+from ..ops.element_kernels import hex8_apply, tet4_apply, tet10_apply
+from ..ops.elements import (QUADRATURE, apply_element_stiffness,
+                            element_stiffness, element_volumes,
                             physical_gradients)
 from ..ops.scatter import RowScatterPlan
 
-_APPLY = {"tet4": tet4_apply, "hex8": hex8_apply}
+_APPLY = {"tet4": tet4_apply, "hex8": hex8_apply, "tet10": tet10_apply}
+#: the rule each apply kernel implements, by element type: an operator
+#: whose order gives another rule is refused (tet4's 1-point rule is exact
+#: at any order)
+_KERNEL_RULE = {"hex8": ("hex", 2), "tet10": ("tet", 2)}
+_MODES = ("otf", "stored")
+
+
+def _ke_batch(dmesh: DeviceMesh, lam: torch.Tensor, mu: torch.Tensor,
+              order: int) -> torch.Tensor:
+    """The mesh's Ke batch [C, 3k, 3k], through the Ke-batch kernels on the
+    card where a kernel computes this rule (ops/elements.element_stiffness
+    decides)."""
+    return element_stiffness(dmesh.coords[dmesh.conn.long()], lam, mu,
+                             dmesh.element_type, order)
+
+
+def _cells(x, dmesh: DeviceMesh) -> torch.Tensor:
+    """A scalar or per-element value as a contiguous [C] tensor."""
+    return torch.broadcast_to(torch.as_tensor(
+        x, dtype=dmesh.coords.dtype, device=dmesh.device),
+        (dmesh.conn.shape[0],)).contiguous()
 
 
 class StiffnessOperator:
-    """The matrix-free K of one mesh and material, with a BC mask.
+    """K of one mesh and material, with a BC mask.
 
     All tensors live on ``dmesh.device``.  On a CUDA device ``matvec_raw``
-    always runs the element-apply kernel (fp32 and fp64 alike); on the CPU
-    it runs that kernel's plain PyTorch version.
+    runs the element-apply kernel in ``otf`` mode (fp32 and fp64 alike) and
+    ``stored`` mode builds its Ke batch with the Ke-batch kernels; on the
+    CPU both run those kernels' plain PyTorch versions.
     """
 
     def __init__(self, dmesh: DeviceMesh, plan: RowScatterPlan,
                  lam: torch.Tensor, mu: torch.Tensor,
-                 free_mask: torch.Tensor, order: int):
+                 free_mask: torch.Tensor, order: int,
+                 ke: Optional[torch.Tensor] = None):
         self.dmesh = dmesh
         self.plan = plan
         self.lam = lam              # [C] per-element lambda (SIMP-ready)
         self.mu = mu                # [C] per-element mu
         self.free_mask = free_mask  # [ndof] 1.0 free / 0.0 fixed
         self.order = order
+        self.ke = ke                # [C, 3k, 3k] in stored mode, else None
 
     @staticmethod
     def build(dmesh: DeviceMesh, lam, mu,
               free_mask: Optional[torch.Tensor] = None,
               mode: str = "otf", order: int = 2) -> "StiffnessOperator":
-        if mode != "otf":
-            raise NotImplementedError(
-                f"operator mode {mode!r} is not ported yet (ROADMAP Queue A "
-                "item 2); the port applies K on the fly ('otf')")
-        if dmesh.element_type not in _APPLY:
-            raise NotImplementedError(
-                f"no element-apply kernel for {dmesh.element_type!r} yet "
-                "(ROADMAP Queue A item 7, Queue B)")
-        if dmesh.element_type == "hex8" and order != 2:
-            raise ValueError("the hex8 apply kernel implements the 2x2x2 "
-                             f"Gauss rule (order 2), got order={order}")
-        C = dmesh.conn.shape[0]
-        dtype, device = dmesh.coords.dtype, dmesh.device
-        lam = torch.broadcast_to(torch.as_tensor(
-            lam, dtype=dtype, device=device), (C,)).contiguous()
-        mu = torch.broadcast_to(torch.as_tensor(
-            mu, dtype=dtype, device=device), (C,)).contiguous()
+        if mode not in _MODES:
+            raise ValueError(f"operator mode must be one of {_MODES}, got "
+                             f"{mode!r}")
+        rule = _KERNEL_RULE.get(dmesh.element_type)
+        if (mode == "otf" and rule is not None
+                and QUADRATURE.get((rule[0], order)) is not QUADRATURE[rule]):
+            raise ValueError(
+                f"the {dmesh.element_type} apply kernel implements the "
+                f"{QUADRATURE[rule][1].size}-point order-2 rule; order="
+                f"{order} gives another")
+        lam = _cells(lam, dmesh)
+        mu = _cells(mu, dmesh)
         plan = RowScatterPlan.build(dmesh.conn.cpu().numpy(),
-                                    dmesh.coords.shape[0], device=device)
+                                    dmesh.coords.shape[0],
+                                    device=dmesh.device)
         if free_mask is None:
-            free_mask = torch.ones(DIM * plan.n_nodes, dtype=dtype,
-                                   device=device)
-        return StiffnessOperator(dmesh, plan, lam, mu, free_mask, order)
+            free_mask = torch.ones(DIM * plan.n_nodes,
+                                   dtype=dmesh.coords.dtype,
+                                   device=dmesh.device)
+        ke = _ke_batch(dmesh, lam, mu, order) if mode == "stored" else None
+        return StiffnessOperator(dmesh, plan, lam, mu, free_mask, order, ke)
+
+    def with_material(self, lam, mu) -> "StiffnessOperator":
+        """The same mesh, plan and mask with another material; a stored
+        operator builds its Ke batch anew (reference:
+        topopteval_tpu/fem/operator.py:139-148)."""
+        lam = _cells(lam, self.dmesh)
+        mu = _cells(mu, self.dmesh)
+        ke = (None if self.ke is None
+              else _ke_batch(self.dmesh, lam, mu, self.order))
+        return StiffnessOperator(self.dmesh, self.plan, lam, mu,
+                                 self.free_mask, self.order, ke)
 
     @property
     def n_dofs(self) -> int:
@@ -83,8 +126,19 @@ class StiffnessOperator:
     def matvec_raw(self, u: torch.Tensor) -> torch.Tensor:
         """K @ u without BC masking."""
         dm = self.dmesh
-        f_e = _APPLY[dm.element_type](dm.coords, dm.conn, u.contiguous(),
-                                      self.lam, self.mu)
+        if self.ke is not None:
+            C, ek, _ = self.ke.shape
+            u_e = u.reshape(-1, DIM)[dm.conn.long()].reshape(C, ek, 1)
+            f_e = torch.bmm(self.ke, u_e).reshape(C, -1, DIM)
+        elif dm.element_type in _APPLY:
+            f_e = _APPLY[dm.element_type](dm.coords, dm.conn, u.contiguous(),
+                                          self.lam, self.mu)
+        else:               # hex20: no kernel in either package
+            idx = dm.conn.long()
+            f_e = apply_element_stiffness(dm.coords[idx],
+                                          u.reshape(-1, DIM)[idx], self.lam,
+                                          self.mu, dm.element_type,
+                                          self.order)
         return self.plan.scatter_add(f_e).reshape(-1)
 
     def matvec(self, u: torch.Tensor) -> torch.Tensor:
@@ -161,13 +215,7 @@ def assemble_scipy(mesh: Mesh, lam, mu, order: int = 2,
     unit diagonal)."""
     import scipy.sparse as sp
 
-    coords_e = torch.from_numpy(mesh.coords[mesh.conn])
-    C = mesh.n_cells
-    lam = np.broadcast_to(np.asarray(lam, np.float64), (C,))
-    mu = np.broadcast_to(np.asarray(mu, np.float64), (C,))
-    ke = element_stiffness(coords_e, torch.from_numpy(lam.copy()),
-                           torch.from_numpy(mu.copy()), mesh.element_type,
-                           order).numpy()
+    ke = host_element_stiffness(mesh, lam, mu, order)
     edofs = element_dofs(mesh.conn)                    # [C, ek]
     ek = edofs.shape[1]
     rows = np.repeat(edofs, ek, axis=1).reshape(-1)

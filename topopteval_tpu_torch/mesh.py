@@ -243,6 +243,35 @@ class Mesh:
             self._surface_cache = extract_surface(self)
         return self._surface_cache
 
+    # -- refinement ---------------------------------------------------------
+
+    def to_quadratic(self) -> "Mesh":
+        """Tet4 -> Tet10 / Hex8 -> Hex20 by mid-edge node insertion
+        (reference: FiniteElementAnalysis.jl:160-163, which attaches
+        quadratic Lagrange DOFs to a linear grid of either family).
+
+        Mid-edge nodes follow the VTK quadratic orderings (EDGE_TABLES) and
+        are numbered after the corner nodes in the order of ``np.unique``
+        over the sorted edge pairs, as topopteval_tpu/mesh.py:300-328
+        numbers them, so both packages give the same arrays.  The result
+        carries no ``structured_info``: its nodes are no longer a box
+        lattice."""
+        quad_of = {"tet4": "tet10", "hex8": "hex20"}
+        if self.element_type not in quad_of:
+            raise ValueError(
+                f"quadratic refinement supports tet4 and hex8 meshes "
+                f"(got {self.element_type!r})")
+        edges = np.asarray(EDGE_TABLES[self.element_type], dtype=np.int64)
+        ev = np.sort(self.conn[:, edges], axis=2).reshape(-1, 2)
+        uniq, inverse = np.unique(ev, axis=0, return_inverse=True)
+        mid_coords = 0.5 * (self.coords[uniq[:, 0]] + self.coords[uniq[:, 1]])
+        mid_ids = (self.n_nodes + inverse.reshape(-1)).reshape(self.n_cells,
+                                                             len(edges))
+        return Mesh(np.vstack([self.coords, mid_coords]),
+                    np.hstack([self.conn, mid_ids]).astype(np.int32),
+                    quad_of[self.element_type], density=self.density,
+                    cellsets=self.cellsets)
+
     # -- device transfer ----------------------------------------------------
 
     def device(self, dtype: torch.dtype = torch.float32,

@@ -1,15 +1,19 @@
 """Reference-element tables and batched element math (plain PyTorch).
 
-Counterpart of ``topopteval_tpu.ops.elements`` for tet4 and hex8.  Every
-element-level quantity is computed for the whole batch at once with
-einsums over ``[C, ...]`` tensors on the caller's device.
+Counterpart of ``topopteval_tpu.ops.elements`` for tet4, hex8, tet10 and
+hex20.  Every element-level quantity is computed for the whole batch at
+once with einsums over ``[C, ...]`` tensors on the caller's device; on a
+CUDA tensor :func:`element_stiffness` hands tet4, hex8 and tet10 to the
+Ke-batch kernels of ops/ke_kernels.py.
 
 Conventions (as in the JAX package)
 -----------------------------------
 - Reference tetrahedron: vertices (0,0,0),(1,0,0),(0,1,0),(0,0,1).
-- Reference hexahedron: [-1,1]^3, trilinear, VTK/Ferrite node order.
+- Reference hexahedron: [-1,1]^3, trilinear, VTK/Ferrite node order;
+  tet10 and hex20 add their mid-edge nodes in VTK quadratic order.
 - Quadrature: the reference's order-2 rules, 4 points/tet and 2x2x2
-  Gauss/hex (reference: FiniteElementAnalysis.jl:160-168).
+  Gauss/hex (reference: FiniteElementAnalysis.jl:160-168); hex20
+  defaults to 3x3x3 Gauss (api.Problem).
 
 The isotropic stiffness identity used throughout:
 
@@ -65,6 +69,90 @@ def hex8_grad(xi):
     return np.stack([gx, gy, gz], axis=1)
 
 
+def tet10_shape(xi):
+    x, y, z = xi
+    l1, l2, l3, l4 = 1 - x - y - z, x, y, z
+    return np.array([
+        l1 * (2 * l1 - 1), l2 * (2 * l2 - 1),
+        l3 * (2 * l3 - 1), l4 * (2 * l4 - 1),
+        4 * l1 * l2, 4 * l2 * l3, 4 * l3 * l1,
+        4 * l1 * l4, 4 * l2 * l4, 4 * l3 * l4,
+    ])
+
+
+def tet10_grad(xi):
+    x, y, z = xi
+    l1 = 1 - x - y - z
+    dl1 = np.array([-1.0, -1.0, -1.0])
+    dl2 = np.array([1.0, 0.0, 0.0])
+    dl3 = np.array([0.0, 1.0, 0.0])
+    dl4 = np.array([0.0, 0.0, 1.0])
+    l2, l3, l4 = x, y, z
+    return np.stack([
+        (4 * l1 - 1) * dl1, (4 * l2 - 1) * dl2,
+        (4 * l3 - 1) * dl3, (4 * l4 - 1) * dl4,
+        4 * (l1 * dl2 + l2 * dl1), 4 * (l2 * dl3 + l3 * dl2),
+        4 * (l3 * dl1 + l1 * dl3), 4 * (l1 * dl4 + l4 * dl1),
+        4 * (l2 * dl4 + l4 * dl2), 4 * (l3 * dl4 + l4 * dl3),
+    ])
+
+
+#: natural coordinates of the 20 serendipity hex nodes in
+#: VTK_QUADRATIC_HEXAHEDRON order: 8 corners (VTK hex order), then the 12
+#: mid-edge nodes of EDGE_TABLES['hex8'] (one zero entry marks a mid-edge
+#: node's edge direction)
+HEX20_NAT = np.array(
+    [list(s) for s in HEX_SIGNS]
+    + [[0, -1, -1], [1, 0, -1], [0, 1, -1], [-1, 0, -1],
+       [0, -1, 1], [1, 0, 1], [0, 1, 1], [-1, 0, 1],
+       [-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
+    dtype=np.float64)
+
+
+def hex20_shape(xi):
+    """20-node serendipity hexahedron (the quadratic hex of VTK/gmsh
+    meshes; reference path FiniteElementAnalysis.jl:160-163)."""
+    x, y, z = xi
+    out = np.empty(20)
+    for i, (a, b, c) in enumerate(HEX20_NAT):
+        if a == 0:
+            out[i] = (1 - x * x) * (1 + b * y) * (1 + c * z) / 4.0
+        elif b == 0:
+            out[i] = (1 + a * x) * (1 - y * y) * (1 + c * z) / 4.0
+        elif c == 0:
+            out[i] = (1 + a * x) * (1 + b * y) * (1 - z * z) / 4.0
+        else:
+            out[i] = ((1 + a * x) * (1 + b * y) * (1 + c * z)
+                      * (a * x + b * y + c * z - 2.0) / 8.0)
+    return out
+
+
+def hex20_grad(xi):
+    x, y, z = xi
+    out = np.empty((20, 3))
+    for i, (a, b, c) in enumerate(HEX20_NAT):
+        if a == 0:
+            out[i] = [-2 * x * (1 + b * y) * (1 + c * z) / 4.0,
+                      (1 - x * x) * b * (1 + c * z) / 4.0,
+                      (1 - x * x) * (1 + b * y) * c / 4.0]
+        elif b == 0:
+            out[i] = [a * (1 - y * y) * (1 + c * z) / 4.0,
+                      (1 + a * x) * (-2 * y) * (1 + c * z) / 4.0,
+                      (1 + a * x) * (1 - y * y) * c / 4.0]
+        elif c == 0:
+            out[i] = [a * (1 + b * y) * (1 - z * z) / 4.0,
+                      (1 + a * x) * b * (1 - z * z) / 4.0,
+                      (1 + a * x) * (1 + b * y) * (-2 * z) / 4.0]
+        else:
+            q = a * x + b * y + c * z - 2.0
+            out[i] = [
+                a * (1 + b * y) * (1 + c * z) * (q + (1 + a * x)) / 8.0,
+                b * (1 + a * x) * (1 + c * z) * (q + (1 + b * y)) / 8.0,
+                c * (1 + a * x) * (1 + b * y) * (q + (1 + c * z)) / 8.0,
+            ]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Quadrature rules (order-2 defaults = reference parity)
 # ---------------------------------------------------------------------------
@@ -100,21 +188,20 @@ QUADRATURE = {
                   for wx in _G3W]),
     ),
 }
+# order-3 tets take the 4-point rule (the JAX package's choice)
 QUADRATURE[("tet", 3)] = QUADRATURE[("tet", 2)]
 
-_FAMILY = {"tet4": "tet", "hex8": "hex"}
+_FAMILY = {"tet4": "tet", "tet10": "tet", "hex8": "hex", "hex20": "hex"}
 _SHAPE_FNS = {"tet4": (tet4_shape, tet4_grad),
-              "hex8": (hex8_shape, hex8_grad)}
+              "tet10": (tet10_shape, tet10_grad),
+              "hex8": (hex8_shape, hex8_grad),
+              "hex20": (hex20_shape, hex20_grad)}
 
 
 @functools.lru_cache(maxsize=None)
 def element_tables(element_type: str, order: int = 2
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Precompute (N [nqp,k], dN_ref [nqp,k,3], weights [nqp]) tables."""
-    if element_type not in _FAMILY:
-        raise NotImplementedError(
-            f"{element_type!r} elements are not ported yet (ROADMAP "
-            "Queue A item 7); the port has tet4 and hex8")
     pts, wts = QUADRATURE[(_FAMILY[element_type], order)]
     shape_fn, grad_fn = _SHAPE_FNS[element_type]
     N = np.stack([shape_fn(p) for p in pts])
@@ -179,14 +266,40 @@ def _broadcast_cells(x, C: int, like: torch.Tensor) -> torch.Tensor:
         torch.as_tensor(x, dtype=like.dtype, device=like.device), (C,))
 
 
+def has_ke_kernel(element_type: str, order: int) -> bool:
+    """Whether a Ke-batch kernel computes this element's rule: tet4 at any
+    order (constant strain makes the 1-point rule exact), hex8 and tet10 at
+    the order-2 rule (the JAX gate, topopteval_tpu/ops/elements.py:308-312,
+    without its TPU dtype limit)."""
+    return element_type == "tet4" or (element_type in ("hex8", "tet10")
+                                      and order == 2)
+
+
 def element_stiffness(coords_e: torch.Tensor, lam, mu, element_type: str,
-                      order: int = 2) -> torch.Tensor:
+                      order: int = 2, use_kernel=None) -> torch.Tensor:
     """Batched Ke [C, 3k, 3k] for isotropic elasticity; ``lam``/``mu`` are
     scalars or per-element arrays [C] (reference:
-    FiniteElementAnalysis.jl:669-703)."""
+    FiniteElementAnalysis.jl:669-703).
+
+    ``use_kernel=None`` sends a CUDA batch that :func:`has_ke_kernel`
+    covers to the Ke-batch kernels of ops/ke_kernels.py (fp32 and fp64);
+    everything else, and ``use_kernel=False``, takes the batched plain
+    route below, which is also those kernels' plain version."""
     C, k, _ = coords_e.shape
     lam = _broadcast_cells(lam, C, coords_e)
     mu = _broadcast_cells(mu, C, coords_e)
+    if use_kernel is None:
+        use_kernel = (coords_e.device.type == "cuda"
+                      and has_ke_kernel(element_type, order))
+    if use_kernel:
+        from .ke_kernels import KE_KERNELS
+        # the kernels gather node rows through conn; the batch is its own
+        # node table here
+        conn = torch.arange(C * k, dtype=torch.int32,
+                            device=coords_e.device).reshape(C, k)
+        coords = coords_e.reshape(-1, DIM).contiguous()
+        return KE_KERNELS[element_type](coords, conn, lam.contiguous(),
+                                        mu.contiguous())
     g, wdet = physical_gradients(coords_e, element_type, order)
     wl = wdet * lam[:, None]
     wm = wdet * mu[:, None]
