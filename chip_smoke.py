@@ -61,12 +61,26 @@ few) and each failing the script on a failed check:
    beams and the SIMP Hex8 fixture (against otf) and a ``with_material``
    swap; a hex20 box against the direct solve; and the three kernels'
    times beside their bound, the plain version and a ``torch.bmm``
-   yardstick.
+   yardstick;
+10. the Galerkin voxel multigrid (``TOPOPT_MG=galerkin``) and its
+   scan-window ELL kernels, B9a ``bell_window`` and B9b ``sell_window``:
+   both against their plain versions on random banded triplets with empty
+   rows, on a window cut by hand, on node-major strided views and at the
+   scale-16 block-ELL fine operator's shapes; the Tet4 fixture in float64
+   against the direct solve and the CPU iteration count of both packages;
+   the 1,228,800-tet beam written to .vtu and read back, solved in float32
+   through float64 refinement against data/oracle_energies.json, with the
+   build seconds by phase; the kernels at that route's level-1 operator
+   and transfers; their times beside their bound, the plain version, one
+   cuSPARSE call and B4/B5 on the same matrix; and where one MG-PCG
+   iteration of that route spends its time.
 
 The line before last is one JSON object with a record per kernel; the
 last line is the run's contract line.  Imports nothing of JAX.
 """
 
+import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -74,6 +88,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 CG_KW = dict(method="cg", preconditioner="block_diagonal", tolerance=1e-10,
              max_iterations=20000, verbose=False)
@@ -144,15 +159,22 @@ REPLACES = {
     "stencil_window": "topopteval_tpu/ops/pallas_stencil.py:97",
     "bell_matvec": "topopteval_tpu/ops/pallas_bsr.py:287",
     "sell_matvec": "topopteval_tpu/ops/pallas_bsr.py:399",
+    # B9a: _bell_kernel with _grouped_gather (:76), via bell_matvec_pallas
+    "bell_window": "topopteval_tpu/ops/pallas_bsr.py:119",
+    # B9b: _sell_kernel, via sell_matvec_pallas
+    "sell_window": "topopteval_tpu/ops/pallas_bsr.py:204",
 }
 SOURCE = "topopteval_tpu_torch/csrc/element_apply.cu"
 STENCIL_SOURCE = "topopteval_tpu_torch/csrc/stencil_apply.cu"
 BELL_SOURCE = "topopteval_tpu_torch/csrc/bell_apply.cu"
 KE_SOURCE = "topopteval_tpu_torch/csrc/element_ke.cu"
+ELL_SOURCE = "topopteval_tpu_torch/csrc/ell_apply.cu"
 # operations per stored entry that the block-ELL functions need: a 3x3
 # block times a 3-vector added into 3 sums, 9 multiplies and 9 adds; a
 # scalar weight times a 3-vector into 3 sums, 6
 FLOPS_PER_BLOCK = {"bell_matvec": 18, "sell_matvec": 6}
+# H100 SXM L2 cache
+L2_BYTES = 50 * 2 ** 20
 MG_KW = dict(method="cg", preconditioner="multigrid", tolerance=1e-10,
              max_iterations=500, verbose=False)
 BEAM_BOX = (60.0, 20.0, 4.0)
@@ -162,6 +184,403 @@ TOLERANCE = {"float64": 1e-12, "float32": 1e-5}
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def ell_scalar_triplets(table):
+    """(rows, cols, weights) of an ``fem.multigrid.EllTable`` on the host:
+    its slots with a nonzero weight."""
+    import numpy as np
+    Nt = table.wblk.shape[0]
+    cols = table.cols2.reshape(Nt, table.S, 128).permute(0, 2, 1) \
+        .reshape(-1, table.S)[:table.n_rows].cpu().numpy()
+    w = table.w2.reshape(Nt, table.S, 128).permute(0, 2, 1) \
+        .reshape(-1, table.S)[:table.n_rows].double().cpu().numpy()
+    live = w != 0
+    rows = np.repeat(np.arange(table.n_rows), table.S).reshape(cols.shape)
+    return rows[live], cols[live], w[live]
+
+
+def galerkin_phase(env):
+    """Phase 10: the Galerkin voxel multigrid (``TOPOPT_MG=galerkin``) and
+    its kernels, B9a ``bell_window`` and B9b ``sell_window``.  ``env``
+    carries main()'s helpers (check, solve, setup, report, oracle_energy,
+    time_ms, library_call, records, main_path_launches) and the inputs:
+    ``fine_bsr`` (the scale-16 block-ELL fine operator's host BSR, RCM
+    order, from phase 8), ``beam16`` (the scale-16 beam), ``oracle16``,
+    ``fixture_path``, ``tmp`` and ``dev``."""
+    import numpy as np
+    import torch
+
+    import topopteval_tpu_torch as tt
+    from topopteval_tpu_torch import api as tt_api
+    from topopteval_tpu_torch.fem.solvers import cg
+    from topopteval_tpu_torch.ops import bell as bo
+    from topopteval_tpu_torch.ops import element_kernels as ek
+    from topopteval_tpu_torch.ops import ell as el
+
+    dev, check, time_ms = env.dev, env.check, env.time_ms
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    fns = {"bell_window": (el.bell_matvec_window,
+                           el.bell_matvec_window_reference),
+           "sell_window": (el.sell_matvec_window,
+                           el.sell_matvec_window_reference)}
+    errs, inputs = {}, {}
+
+    def packed(rows, cols, data, n_rows, n_cols, dtype):
+        pk = el.pack_ell_rows(rows, cols, data, n_rows, n_cols)
+        t = {k: torch.as_tensor(pk[k], device=dev)
+             for k in ("cols2", "wblk", "gbounds")}
+        t["vals2"] = torch.as_tensor(pk["vals2"], dtype=dtype, device=dev)
+        return pk, t
+
+    def parity(name, label, t, S, kc, u, triplets, n_real, node_major=False,
+               n_rows=None):
+        """One launch against the plain version on the same inputs."""
+        kern, plain = fns[name]
+        args = (t["cols2"], t["vals2"], t["wblk"], t["gbounds"], u, S, kc)
+        kw = {"node_major": node_major, "n_rows": n_rows}
+        before = el.LAUNCHES[name]
+        out = kern(*args, **kw)
+        sync()
+        check(el.LAUNCHES[name] == before + 1,
+              f"{name} did not count its launch")
+        ref = plain(*args, **kw)
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"{name} {label}: shape {tuple(out.shape)} or not finite")
+        if not node_major and n_rows is None:
+            check(bool((out[:, n_real:] == 0).all()),
+                  f"{name} {label}: a pad row is not zero")
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        tol = TOLERANCE[str(u.dtype).split(".")[1]]
+        errs[(name, label)] = err
+        inputs[(name, label)] = (args, kw, triplets)
+        print(f"[parity] {name} {label} layout="
+              f"{'[n,3] strides ' + str(tuple(u.stride())) if node_major else '[3,n]'}"
+              f" rows={n_rows or out.shape[-1]} S={S} kc={kc} "
+              f"max_abs_err={err:.3e} max|plain|={scale:.3e} "
+              f"rel={err / scale:.3e} (tol {tol:.0e})", flush=True)
+        check(err <= tol * scale,
+              f"{name} {label} disagrees with its plain version")
+        return out, ref
+
+    # 10a. random banded triplets with empty rows (every seventh), the
+    # packed window and one cut by hand to kc = 1, component-major and
+    # node-major views of a wider buffer; then the scale-16 fine operator
+    rng = np.random.default_rng(10)
+    N = 5000
+    rows = rng.integers(0, N, 60000)
+    rows = rows[rows % 7 != 3]
+    cols = np.clip(rows + rng.integers(-300, 301, rows.size), 0, N - 1)
+    data = {"bell_window": rng.standard_normal((rows.size, 3, 3)),
+            "sell_window": rng.standard_normal(rows.size)}
+    for name in fns:
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[1]
+            pk, t = packed(rows, cols, data[name], N, N, dtype)
+            trip = (rows, cols, data[name], pk["n_rows_p"], pk["n_cols_p"])
+            u = torch.as_tensor(rng.standard_normal((3, pk["n_cols_p"])),
+                                dtype=dtype, device=dev)
+            full, _ = parity(name, f"random_{dname}", t, pk["S"], pk["kc"],
+                             u, trip, N)
+            cut, _ = parity(name, f"random_cut_kc1_{dname}", t, pk["S"], 1,
+                            u, trip, N)
+            check(float((full - cut).abs().max()) > 0,
+                  f"{name}: the cut window dropped no column")
+            wide = torch.zeros((pk["n_cols_p"], 5), dtype=dtype, device=dev)
+            wide[:, 1:4] = u.t()
+            nm, _ = parity(name, f"random_strided_{dname}", t, pk["S"],
+                           pk["kc"], wide[:, 1:4], trip, N, node_major=True,
+                           n_rows=N - 3)
+            check(float((nm - full[:, :N - 3].t()).abs().max())
+                  <= TOLERANCE[dname] * float(full.abs().max()),
+                  f"{name}: the strided layout disagrees with [3, n]")
+
+    hb = env.fine_bsr
+    n16 = len(hb["indptr"]) - 1
+    f_rows = np.repeat(np.arange(n16), np.diff(hb["indptr"]))
+    f_cols = np.asarray(hb["indices"], np.int64)
+    f_data = np.asarray(hb["data"], np.float64).reshape(-1, 3, 3)
+    t0 = time.perf_counter()
+    pk16 = el.pack_ell_rows(f_rows, f_cols, f_data, n16, n16)
+    print(f"[galerkin] scale-16 fine operator (block-ELL RCM order) packed "
+          f"by pack_ell_rows in {time.perf_counter() - t0:.2f} s: "
+          f"rows={n16} blocks={f_rows.size} S={pk16['S']} kc={pk16['kc']} "
+          f"n_rows_p={pk16['n_rows_p']}", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        t = {k: torch.as_tensor(pk16[k], device=dev)
+             for k in ("cols2", "wblk", "gbounds")}
+        t["vals2"] = torch.as_tensor(pk16["vals2"], dtype=dtype, device=dev)
+        trip = (f_rows, f_cols, f_data, pk16["n_rows_p"], pk16["n_cols_p"])
+        u = torch.as_tensor(rng.standard_normal((3, pk16["n_cols_p"])),
+                            dtype=dtype, device=dev)
+        full, _ = parity("bell_window", f"fine16_{dname}", t, pk16["S"],
+                         pk16["kc"], u, trip, n16)
+        if dtype == torch.float32:
+            nm, _ = parity("bell_window", f"fine16_nodemajor_{dname}", t,
+                           pk16["S"], pk16["kc"], u.t().contiguous(), trip,
+                           n16, node_major=True, n_rows=n16)
+    del pk16, t, full, nm
+
+    # 10b. the Tet4 fixture through TOPOPT_MG=galerkin in float64 against
+    # the port's direct solve; the CPU tests record 111 MG-PCG iterations
+    # for both packages (tests/test_torch_galerkin.py).  Its one voxel
+    # level is the coarsest (a dense pseudo-inverse), so B9b carries the
+    # transfer and B9a has no level to apply here
+    mg_cfg = tt.SolverConfig(**MG_KW)
+    os.environ["TOPOPT_MG"] = "galerkin"
+    try:
+        p = env.setup(tt.import_mesh(env.fixture_path), torch.float64)
+        ref = env.oracle_energy(p)
+        r, secs, launches = env.solve(p, mg_cfg, "sell_window")
+        rel = env.report("galerkin_fixture_fp64", r, secs, launches, ref)
+        info = p._mg_build_info
+        print(f"[galerkin_fixture_fp64] route={info['route']} "
+              f"lattice={info['lattice']} voxel_levels={info['voxel_levels']}"
+              f" reach={info['reach']} probes={info['n_probes']} "
+              f"level_nodes={info['level_nodes']} iterations={r.iterations} "
+              f"(both packages on the CPU: 111) build_phases_s="
+              + json.dumps({k: round(v, 3) for k, v in info["phases"].items()}),
+              flush=True)
+        check(r.converged and rel <= 1e-8,
+              f"Galerkin fixture rel_err {rel:.3e} > 1e-8")
+        check(r.iterations == 111,
+              f"Galerkin fixture took {r.iterations} iterations, not 111")
+
+        # 10c. the scale-16 beam through .vtu (1,228,800 tets) in float32
+        # through float64 refinement, tolerance 1e-10
+        path = tt.write_vtu(os.path.join(env.tmp, "beam_scale_16_g.vtu"),
+                            env.beam16)
+        mesh = tt.import_mesh(path)
+        check(mesh.structured_info is None
+              and np.array_equal(mesh.conn, env.beam16.conn),
+              "scale-16 beam does not round-trip through .vtu")
+        p16 = env.setup(mesh, torch.float32)
+        r, secs, launches = env.solve(p16, mg_cfg, "bell_window")
+        sell_launches = el.LAUNCHES["sell_window"]
+        rel = env.report("galerkin_beam16_fp32", r, secs, launches,
+                         env.oracle16)
+        info = p16._mg_build_info
+        per_it = 1e3 * r.solve_time / max(r.iterations, 1)
+        print(f"[galerkin_beam16_fp32] dofs={p16.n_dofs} "
+              f"tets={mesh.n_cells} lattice={info['lattice']} voxel_levels="
+              f"{info['voxel_levels']} reach={info['reach']} probes="
+              f"{info['n_probes']} level_nodes={info['level_nodes']} "
+              f"ell_widths={info['ell_widths']} lam_max_fine="
+              f"{info['lam_max_fine']:.6f} iterations={r.iterations} "
+              f"refinement_passes={r.refinement_passes} "
+              f"build_operator_s={r.timings['build_operator']:.3f} "
+              f"build_phases_s="
+              + json.dumps({k: round(v, 3) for k, v in info["phases"].items()})
+              + f" solve_s={r.solve_time:.3f} wall_ms_per_iter={per_it:.4f} "
+              f"refine_host_build_s="
+              f"{r.timings.get('refine_host_build_seconds', 0.0):.3f} "
+              f"refine_host_matvec_s="
+              f"{r.timings.get('refine_host_matvec_seconds', 0.0):.3f} "
+              f"bell_window_launches={launches} "
+              f"sell_window_launches={sell_launches}", flush=True)
+        check(r.converged and r.refinement_passes > 0,
+              "scale-16 Galerkin fp32 did not converge through refinement")
+        check(rel <= 1e-8, f"scale-16 Galerkin fp32 rel_err {rel:.3e}")
+        check(sell_launches > 0, "sell_window was not launched by the solve")
+        op_g, M_g = tt_api._get_multigrid(p16)
+    finally:
+        os.environ.pop("TOPOPT_MG", None)
+
+    # 10d. the kernels at the route's own shapes: the level-1 Galerkin
+    # operator (node-major, as the V-cycle calls it) and the first
+    # transfers, in the solve's float32 and in float64
+    check(len(M_g.levels) >= 2, "the scale-16 hierarchy has no Galerkin "
+          "level above its coarsest")
+    L1 = M_g.levels[1].op
+    P0, R0 = M_g.levels[0].transfer.P, M_g.levels[0].transfer.R
+    l1_trip = L1.triplets()
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        t = {"cols2": L1.cols2, "wblk": L1.wblk, "gbounds": L1.gbounds,
+             "vals2": L1.vals2.to(dtype)}
+        n = L1.n_nodes
+        u = torch.as_tensor(rng.standard_normal((n, 3)), dtype=dtype,
+                            device=dev)
+        parity("bell_window", f"level1_{dname}", t, L1.S, L1.kc, u,
+               (*l1_trip, n, n), n, node_major=True, n_rows=n)
+        for label, T, n_cols in (("prolong0", P0, R0.n_rows),
+                                 ("restrict0", R0, P0.n_rows)):
+            t = {"cols2": T.cols2, "wblk": T.wblk, "gbounds": T.gbounds,
+                 "vals2": T.w2.to(dtype)}
+            u = torch.as_tensor(rng.standard_normal((n_cols, 3)),
+                                dtype=dtype, device=dev)
+            parity("sell_window", f"{label}_{dname}", t, T.S, T.kc, u,
+                   (*ell_scalar_triplets(T), T.n_rows, n_cols), T.n_rows,
+                   node_major=True, n_rows=T.n_rows)
+
+    # 10e. kernel times beside their bound, the plain version, one
+    # cuSPARSE call (library) and the port's other kernel for the function
+    # (B4 / B5 on block-CSR of the same triplets).  Inputs smaller than
+    # the L2 are timed cold: each call reads its own copy of them.
+    def bound(name, args, kw, nnz):
+        """(bound_ms, bound_by, padded_ms): the bytes of the ``nnz`` real
+        entries (a column index and the values of each), the vector read
+        once and the output written once, against the operations of the
+        real entries; ``padded_ms`` counts every slot of the packed layout
+        as read instead."""
+        cols2, vals, wblk, _, u, S, kc = args
+        item = u.element_size()
+        n_cols = u.shape[0 if kw["node_major"] else 1]
+        n_rows = kw["n_rows"] or wblk.shape[0] * 128
+        vectors = 3 * n_cols * item + 3 * n_rows * item
+        per_entry = 9 if name == "bell_window" else 1
+        real = nnz * (4 + per_entry * vals.element_size()) + vectors
+        padded = (cols2.numel() * 4 + vals.numel() * vals.element_size()
+                  + wblk.numel() * 4 + vectors)
+        flops = FLOPS_PER_BLOCK["bell_matvec" if name == "bell_window"
+                                else "sell_matvec"] * nnz
+        t_ops = flops / PEAK_FLOPS[str(u.dtype).split(".")[1]]
+        t_bytes = real / HBM_BYTES_PER_S
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations",
+                1e3 * max(padded / HBM_BYTES_PER_S, t_ops))
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def cold(make, n_bytes, calls):
+        """(fn, inner, copies): ``fn`` cycles through enough copies of its inputs
+        (``make(i)`` builds the call on copy i, copy 0 the originals) that
+        they span twice the card's 50 MB L2, so no call finds its operands
+        left there by an earlier one; ``inner`` is the multiple of the
+        copy count nearest above ``calls``, for time_ms."""
+        n = max(1, -(-2 * L2_BYTES // n_bytes))
+        fns = [make(i) for i in range(n)]
+        nxt = itertools.cycle(fns).__next__
+        return (lambda: nxt()()), n * -(-calls // n), n
+
+    def copies(i, *tensors):
+        return tensors if i == 0 else tuple(t.clone() for t in tensors)
+
+    timed = {"bell_window": ["fine16_float32", "fine16_float64",
+                             "fine16_nodemajor_float32", "level1_float32"],
+             "sell_window": ["restrict0_float32", "prolong0_float32",
+                             "restrict0_float64", "prolong0_float64"]}
+    for name, labels in timed.items():
+        kern, plain = fns[name]
+        rec = {"name": name, "route": "cuda", "source": ELL_SOURCE,
+               "replaces": REPLACES[name],
+               "launches": env.main_path_launches[name]}
+        for i, label in enumerate(labels):
+            args, kw, (rows_t, cols_t, data_t, nr, nc) = inputs[(name, label)]
+            u = args[4]
+            u_cm = u.t().contiguous() if kw["node_major"] else u
+            A = bo.pack_csr(rows_t, cols_t, data_t, nr, nc, u.dtype, dev)
+            other = bo.bell_matvec if name == "bell_window" else \
+                bo.sell_matvec
+            lib_name = ("bell_matvec" if name == "bell_window"
+                        else "sell_matvec")
+            lib = env.library_call(lib_name, A, u_cm)
+            want = plain(*args, **kw)
+            want_cm = want.t() if kw["node_major"] else want[:, :nr]
+            got = (lib().reshape(nr, 3).t() if name == "bell_window"
+                   else lib().t())
+            lib_err = float((got[:, :want_cm.shape[1]] - want_cm).abs().max()
+                            / want_cm.abs().max())
+            b_ms, b_by, padded_ms = bound(name, args, kw, len(rows_t))
+            out_bytes = nbytes(want)
+
+            def make_kern(j):
+                c2, v2, wb, uj = copies(j, args[0], args[1], args[2], u)
+                a = (c2, v2, wb, args[3], uj, args[5], args[6])
+                return lambda: kern(*a, **kw)
+
+            def make_csr(j, call):
+                ip, cc, vv, uj = copies(j, A.indptr, A.cols, A.vals, u_cm)
+                return call(dataclasses.replace(A, indptr=ip, cols=cc,
+                                                vals=vv), uj)
+
+            k_bytes = nbytes(*args[:3], u) + out_bytes
+            c_bytes = nbytes(A.indptr, A.cols, A.vals, u_cm) + out_bytes
+            kern_cold, k_inner, k_copies = cold(make_kern, k_bytes, 10)
+            lib_cold, l_inner, _ = cold(
+                lambda j: make_csr(j, lambda Aj, uj: env.library_call(
+                    lib_name, Aj, uj)), c_bytes, 4)
+            other_cold, o_inner, _ = cold(
+                lambda j: make_csr(j, lambda Aj, uj: lambda: other(uj, Aj)),
+                c_bytes, 10)
+            vals = {
+                "ms": time_ms(kern_cold, inner=k_inner, graph=True),
+                "plain_ms": time_ms(lambda: plain(*args, **kw), reps=11,
+                                    inner=2),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(lib_cold, reps=11, inner=l_inner),
+                "max_abs_err": errs[(name, label)],
+                "eager_ms": time_ms(kern_cold, inner=k_inner),
+                "warm_ms": time_ms(lambda: kern(*args, **kw), graph=True),
+                "padded_bound_ms": padded_ms,
+                ("b4_ms" if name == "bell_window" else "b5_ms"):
+                    time_ms(other_cold, inner=o_inner, graph=True),
+            }
+            print(f"[time] {name} {label} S={args[5]} kc={args[6]} "
+                  f"rows={kw['n_rows'] or args[2].shape[0] * 128} "
+                  f"nnz={len(rows_t)} copies={k_copies} "
+                  + " ".join(f"{k}={v}" for k, v in vals.items())
+                  + f" library_rel_err={lib_err:.2e} (library: one cuSPARSE "
+                  f"{'BSR' if name == 'bell_window' else 'CSR'} product; "
+                  "ms, eager_ms, library_ms and b4/b5_ms cold in L2, "
+                  "warm_ms the same launch replayed on one copy; bound_ms "
+                  "on the real entries, padded_bound_ms on every slot)",
+                  flush=True)
+            check(lib_err <= 10 * TOLERANCE[str(u.dtype).split(".")[1]],
+                  f"{name} {label}: the library yardstick is off by "
+                  f"{lib_err:.3e}")
+            if i == 0:
+                rec.update(vals)
+                rec["shape"] = label
+            else:
+                rec.update({f"{k}_{label}": v for k, v in vals.items()})
+            del A
+        env.records.append(rec)
+
+    # 10f. where one MG-PCG iteration of the scale-16 route (float32)
+    # spends its time, and the kernel launches per iteration
+    b = torch.as_tensor(p16.f, dtype=torch.float32, device=dev) \
+        * op_g.free_mask
+    iters = 20
+    cg(op_g, b, M=M_g, tol=0.0, maxiter=3)               # warm-up
+    sync()
+    el.reset_launch_counts()
+    ek.reset_launch_counts()
+    t = time.perf_counter()
+    cg(op_g, b, M=M_g, tol=0.0, maxiter=iters)
+    sync()
+    wall_ms = 1e3 * (time.perf_counter() - t) / iters
+    # the start costs what an iteration costs: one matvec, one V-cycle
+    per = {k: v / (iters + 1) for k, v in (*el.LAUNCHES.items(),
+                                           *ek.LAUNCHES.items()) if v}
+    parts = {"system_matvec": time_ms(lambda: op_g.matvec(b)),
+             "vcycle": time_ms(lambda: M_g.apply(b), reps=11, inner=2)}
+    device_ms, top, n_launched = env.profile(
+        lambda: cg(op_g, b, M=M_g, tol=0.0, maxiter=iters), iters)
+    busy = (f"{device_ms / wall_ms:.3f}" if device_ms > 0
+            else "not measured")
+    print(f"[breakdown] galerkin_beam16_fp32 cg_wall_ms_per_iter="
+          f"{wall_ms:.4f} device_ms_per_iter={device_ms:.4f} "
+          f"device_busy_share={busy} launches_per_iter="
+          + json.dumps({k: round(v, 2) for k, v in per.items()})
+          + " (predicted bell_window 8, sell_window 6, tet4_apply 5) "
+          f"device_kernels_per_iter={n_launched:.1f} "
+          + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items()),
+          flush=True)
+    print("[breakdown] galerkin_beam16_fp32 top device ops per iteration "
+          "(ms): " + ", ".join(f"{k[:48]}={v:.4f}" for k, v in top),
+          flush=True)
+    for name in fns:
+        check(per.get(name, 0) > 0,
+              f"{name} is not launched by an MG-PCG iteration")
 
 
 def main() -> int:
@@ -181,6 +600,7 @@ def main() -> int:
     from topopteval_tpu_torch.fem.solvers import direct_solve
     from topopteval_tpu_torch.ops import bell as bo
     from topopteval_tpu_torch.ops import element_kernels as ek
+    from topopteval_tpu_torch.ops import ell as el
     from topopteval_tpu_torch.ops import ke_kernels as kk
     from topopteval_tpu_torch.ops import stencil as st
     from topopteval_tpu_torch.ops.elements import element_stiffness
@@ -193,7 +613,8 @@ def main() -> int:
     kernel_fns = {"tet4_apply": (ek.tet4_apply, ek.tet4_apply_reference),
                   "hex8_apply": (ek.hex8_apply, ek.hex8_apply_reference)}
     main_path_launches = {name: 0 for name in (*ek.LAUNCHES, *st.LAUNCHES,
-                                               *bo.LAUNCHES, *kk.LAUNCHES)}
+                                               *bo.LAUNCHES, *kk.LAUNCHES,
+                                               *el.LAUNCHES)}
 
     # -- 1. device + build -------------------------------------------------
     smi = subprocess.run(
@@ -265,13 +686,14 @@ def main() -> int:
         st.reset_launch_counts()
         bo.reset_launch_counts()
         kk.reset_launch_counts()
+        el.reset_launch_counts()
         t = time.perf_counter()
         result = (tt.solve_system(problem, config) if config is not None
                   else tt.solve_system(problem))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches = {**ek.LAUNCHES, **st.LAUNCHES, **bo.LAUNCHES,
-                    **kk.LAUNCHES}
+                    **kk.LAUNCHES, **el.LAUNCHES}
         for n, c in launches.items():
             main_path_launches[n] += c
         check(launches[kernel] > 0, f"{kernel} was not launched by the solve")
@@ -1392,6 +1814,38 @@ def main() -> int:
                 rec.update({f"{key}_fp64": val for key, val in vals.items()})
         records.append(rec)
     for name in quad_fns:
+        check(main_path_launches[name] > 0,
+              f"{name} was not launched on the main path")
+
+    # -- 10. the Galerkin voxel multigrid (TOPOPT_MG=galerkin): B9a, B9b ----
+    def profile(fn, iters):
+        """(device ms per iteration, the top device ops [(name, ms per
+        iteration)], device kernels per iteration) of ``fn`` under
+        torch.profiler."""
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total
+                        for e in kernels) / 1e3 / iters
+        top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:8]
+        return (device_ms, [(e.key, e.self_device_time_total / 1e3 / iters)
+                            for e in top],
+                sum(e.count for e in kernels) / iters)
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        galerkin_phase(types.SimpleNamespace(
+            dev=dev, check=check, solve=solve, setup=setup, report=report,
+            oracle_energy=oracle_energy, time_ms=time_ms,
+            library_call=library_call, records=records, profile=profile,
+            main_path_launches=main_path_launches, fine_bsr=op16.host_bsr,
+            beam16=beam16, oracle16=oracles["tet_beam_scale_16"],
+            fixture_path=os.path.join(data, "beam_linear_volume_mesh.vtu"),
+            tmp=tmp))
+    for name in el.LAUNCHES:
         check(main_path_launches[name] > 0,
               f"{name} was not launched on the main path")
 

@@ -114,13 +114,14 @@ def test_bell_matvec_reference_matches_scipy_and_jax(split):
     u = np.zeros((3, Np))
     u[:, :N] = np.random.default_rng(1).standard_normal((3, N))
     truth = (K @ u[:, :N].T.reshape(-1)).reshape(N, 3).T
-    A = ops_bell.pack_csr(rows, cols, blocks, Np, Np, torch.float64)
+    A = ops_bell.pack_csr(rows, cols, blocks, Np, Np, torch.float64,
+                          device="cpu")
     lo = None
     ref = _jax_bell(rows, cols, blocks, N, u)
     if split:
         lo_blocks = _random_bsr(N, seed=7)[2] * 1e-3
         lo = ops_bell.pack_csr(rows, cols, lo_blocks, Np, Np,
-                               torch.float64).vals
+                               torch.float64, device="cpu").vals
         truth = truth + _jax_bell(rows, cols, lo_blocks, N, u)[:, :N]
         ref = ref + _jax_bell(rows, cols, lo_blocks, N, u)
     # the wrapper takes a lo plane in float32 only (the kernel's one split
@@ -143,7 +144,8 @@ def test_bell_matvec_reference_bf16_values_match_jax():
     rows, cols, blocks, _ = _random_bsr(N)
     Np = ops_bell.pad_rows(N)
     u = np.random.default_rng(3).standard_normal((3, Np)).astype(np.float32)
-    A = ops_bell.pack_csr(rows, cols, blocks, Np, Np, torch.bfloat16)
+    A = ops_bell.pack_csr(rows, cols, blocks, Np, Np, torch.bfloat16,
+                          device="cpu")
     ours = ops_bell.bell_matvec(torch.as_tensor(u), A)
     assert ours.dtype == torch.float32
     ref = _jax_bell(rows, cols, blocks, N, u, jnp.bfloat16)
@@ -162,7 +164,7 @@ def test_sell_matvec_reference_matches_scipy_and_jax(dtype):
     Np, ncp = ops_bell.pad_rows(N), ops_bell.pad_rows(Nc)
     uc = np.zeros((3, ncp))
     uc[:, :Nc] = rng.standard_normal((3, Nc))
-    T = ops_bell.pack_csr(prow, pcol, w, Np, ncp, dtype)
+    T = ops_bell.pack_csr(prow, pcol, w, Np, ncp, dtype, device="cpu")
     vec_dtype = torch.float64 if dtype == torch.float64 else torch.float32
     ours = ops_bell.sell_matvec(torch.as_tensor(uc, dtype=vec_dtype), T)
     pp = jax_bsr.pack_ell_aligned(prow, pcol, w, N, Nc)
@@ -185,7 +187,8 @@ def test_sell_matvec_reference_matches_scipy_and_jax(dtype):
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     rows, cols, blocks, _ = _random_bsr(40, 200, 5)
-    A = ops_bell.pack_csr(rows, cols, blocks, 128, 128, torch.float64)
+    A = ops_bell.pack_csr(rows, cols, blocks, 128, 128, torch.float64,
+                          device="cpu")
     u = torch.zeros((3, 128), dtype=torch.float64)
     with pytest.raises(TypeError):
         ops_bell.bell_matvec(u.float(), A)
@@ -195,6 +198,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ops_bell.bell_matvec(u[:, :64], A)
     with pytest.raises(ValueError, match="scalar"):
         ops_bell.sell_matvec(u, A)
+
+
+def test_pack_csr_defaults_to_the_card(monkeypatch):
+    """Like every entry point of the port, ``pack_csr`` puts its matrix on
+    the card unless the caller asks for the CPU: without CUDA it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rows, cols, blocks, _ = _random_bsr(40, 200, 5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ops_bell.pack_csr(rows, cols, blocks, 128, 128, torch.float64)
+    A = ops_bell.pack_csr(rows, cols, blocks, 128, 128, torch.float64,
+                          device="cpu")
+    assert A.device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------

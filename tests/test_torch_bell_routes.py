@@ -204,7 +204,15 @@ def test_unported_block_ell_routes_raise(monkeypatch):
     problem.lam = np.zeros_like(problem.lam)      # nu = 0: lam = 0
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         tt.solve_system(problem, tt.SolverConfig(**MG_KW))
+
+
+def test_galerkin_route_solves_box(monkeypatch):
+    # TOPOPT_MG=galerkin (Queue A item 12) is ported: the box takes the
+    # Galerkin voxel route and meets the direct solve
+    monkeypatch.setenv("TOPOPT_MG_CACHE_DIR", "off")
     monkeypatch.setenv("TOPOPT_MG", "galerkin")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        tt.solve_system(_box(torch.float64, 4, 2, 2),
-                        tt.SolverConfig(**MG_KW))
+    box = _box(torch.float64, 4, 2, 2)
+    result = tt.solve_system(box, tt.SolverConfig(**MG_KW))
+    assert box._mg_build_info["route"] == "galerkin"
+    assert result.converged
+    assert _rel(result.energy, _direct_energy(box)) <= 1e-8

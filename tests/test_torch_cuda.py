@@ -503,3 +503,108 @@ def test_with_material_costs_one_ke_launch(cuda):
     u = torch.randn(p.n_dofs, dtype=torch.float64, device=cuda)
     assert float((op2.matvec_raw(u) - 2.0 * op.matvec_raw(u)).abs().max()) \
         <= 1e-12 * float(op2.matvec_raw(u).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# scan-window ELL kernels (csrc/ell_apply.cu)
+# ---------------------------------------------------------------------------
+
+
+def _ell_inputs(device, dtype, block=True, n=1000, n_cols=900, seed=0):
+    """pack_ell_rows of random banded triplets in which every seventh row is
+    empty, and a component-major vector over the padded columns."""
+    from topopteval_tpu_torch.ops import ell
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n, 12 * n)
+    rows = rows[rows % 7 != 3]
+    cols = np.clip(rows * n_cols // n + rng.integers(-60, 61, rows.size), 0,
+                   n_cols - 1)
+    shape = (rows.size, 3, 3) if block else (rows.size,)
+    pk = ell.pack_ell_rows(rows, cols, rng.standard_normal(shape), n, n_cols)
+    t = {k: torch.as_tensor(pk[k], device=device)
+         for k in ("cols2", "wblk", "gbounds")}
+    t["vals2"] = torch.as_tensor(pk["vals2"], dtype=dtype, device=device)
+    u = torch.as_tensor(rng.standard_normal((3, pk["n_cols_p"])),
+                        dtype=dtype, device=device)
+    return pk, t, u
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["packed", "cut_window"])
+@pytest.mark.parametrize("block", [True, False], ids=["bell", "sell"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ell_window_kernels_match_plain_version(cuda, dtype, block, cut):
+    """Both layouts of the vectors (component-major, and node-major views
+    of a wider buffer), every row and a cut of them, the packed window and
+    one cut by hand to kc = 1 (columns outside it contribute zero)."""
+    from topopteval_tpu_torch.ops import ell
+    pk, t, u = _ell_inputs(cuda, dtype, block)
+    kern = ell.bell_matvec_window if block else ell.sell_matvec_window
+    plain = (ell.bell_matvec_window_reference if block
+             else ell.sell_matvec_window_reference)
+    name = "bell_window" if block else "sell_window"
+    kc = 1 if cut else pk["kc"]
+    args = (t["cols2"], t["vals2"], t["wblk"], t["gbounds"])
+    wide = torch.zeros((u.shape[1], 5), dtype=dtype, device=cuda)
+    wide[:, 1:4] = u.t()
+    for vec, kw in ((u, {}),
+                    (wide[:, 1:4], {"node_major": True, "n_rows": 997})):
+        before = ell.LAUNCHES[name]
+        out = kern(*args, vec, pk["S"], kc, **kw)
+        torch.cuda.synchronize()
+        assert ell.LAUNCHES[name] == before + 1
+        ref = plain(*args, vec, pk["S"], kc, **kw)
+        assert out.shape == ref.shape
+        scale = float(ref.abs().max())
+        assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+        if not kw:
+            assert bool((out[:, 1000:] == 0).all())    # pad rows
+    if cut:         # the hand-cut window drops columns: results differ
+        full = plain(*args, u, pk["S"], pk["kc"])
+        assert float((full - plain(*args, u, pk["S"], kc)).abs().max()) > 0
+
+
+def test_ell_window_wrapper_raises_on_a_failed_launch(cuda, monkeypatch):
+    from topopteval_tpu_torch.ops import ell
+    pk, t, u = _ell_inputs(cuda, torch.float64)
+
+    class _Failing:
+        def __getattr__(self, name):
+            if name == "ell_apply_error_string":
+                return lambda err: b"invalid argument"
+            return lambda *args: 1
+
+    before = dict(ell.LAUNCHES)
+    monkeypatch.setattr(ell, "_library", lambda: _Failing())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ell.bell_matvec_window(t["cols2"], t["vals2"], t["wblk"],
+                               t["gbounds"], u, pk["S"], pk["kc"])
+    assert ell.LAUNCHES == before
+
+
+def test_galerkin_hierarchy_on_cuda_matches_cpu(cuda):
+    """The Galerkin voxel hierarchy built and applied on the card (B1 for
+    the probes and the fine level, B9a for the Galerkin levels, B9b for
+    the transfers) against the same build on the CPU, float64."""
+    from topopteval_tpu_torch.fem import multigrid as mgm
+    from topopteval_tpu_torch.ops import ell
+    mesh = tt.generate_grid_tet(16, 4, 4, (0, 0, 0), (16.0, 4.0, 4.0))
+    mesh.structured_info = None
+    mask = tt.free_mask_from_bcs(mesh.n_dofs, [tt.DirichletBC.fixed(
+        tt.nodes_at_plane(mesh, 0, 0.0))])
+    lam, mu = tt.lame_parameters(1.0, 0.3)
+    r = np.random.default_rng(2).standard_normal(mesh.n_dofs) * mask
+    out = {}
+    for device in ("cpu", "cuda"):
+        ell.reset_launch_counts()
+        _, mg = mgm.build_unstructured_multigrid(
+            mesh, lam, mu, free_mask=mask, dtype=torch.float64,
+            max_coarse_dofs=200, device=device)
+        out[device] = mg.apply(torch.as_tensor(r, device=device)).cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert ell.LAUNCHES["bell_window"] > 0
+            assert ell.LAUNCHES["sell_window"] > 0
+        else:
+            assert ell.LAUNCHES == {"bell_window": 0, "sell_window": 0}
+    scale = float(out["cpu"].abs().max())
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-10 * scale

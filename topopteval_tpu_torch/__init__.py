@@ -6,8 +6,9 @@ stiffness operator whose element applies are hand-written CUDA kernels
 (csrc/), block-Jacobi PCG with float64 dots and float64-certified
 mixed-precision refinement, geometric multigrid PCG on generated boxes
 over a hand-written stencil kernel, block-ELL (Galerkin voxel-chain)
-multigrid PCG on any other mesh over hand-written block-sparse kernels,
-stress recovery and VTU export.
+multigrid PCG on any other mesh over hand-written block-sparse kernels
+(or, with ``TOPOPT_MG=galerkin``, the probed Galerkin voxel hierarchy over
+hand-written scan-window ELL kernels), stress recovery and VTU export.
 
 The public names mirror ``topopteval_tpu``'s facade, so each function
 has a counterpart of the same name there.  Entry points take an explicit
@@ -47,9 +48,10 @@ from .config import (SolverConfig, adaptive_config, large_general_config,
 from .models import (cantilever_beam, generate_grid_hex, generate_grid_tet,
                      refined_beam, simp_beam)
 
-# structured multigrid
+# geometric multigrid: structured boxes, Galerkin voxel hierarchy
 from .fem.multigrid import (MultigridPreconditioner,
-                            build_structured_multigrid)
+                            build_structured_multigrid,
+                            build_unstructured_multigrid)
 from .fem.structured import StructuredStiffnessOperator
 
 # terminal helpers
@@ -74,7 +76,7 @@ __all__ = [
     "generate_grid_hex", "generate_grid_tet", "refined_beam",
     "cantilever_beam", "simp_beam",
     "StructuredStiffnessOperator", "build_structured_multigrid",
-    "MultigridPreconditioner",
+    "build_unstructured_multigrid", "MultigridPreconditioner",
     "print_info", "print_error", "print_warning", "print_success",
     "print_data", "set_verbosity",
 ]

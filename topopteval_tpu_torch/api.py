@@ -420,14 +420,16 @@ def _get_multigrid(problem: Problem):
     that varies inside a hex, dims that do not coarsen 2:1) gets the
     block-ELL hierarchy (fem/bell.py), whose operator is a
     :class:`.fem.bell.BellSystem` on component-major vectors.
-    ``TOPOPT_MG=galerkin`` (the voxel-probing hierarchy) is not ported and
-    raises."""
+    ``TOPOPT_MG=galerkin`` forces the voxel-probing Galerkin hierarchy
+    (fem/multigrid.build_unstructured_multigrid) for those meshes instead;
+    its operator is the matrix-free fine :class:`StiffnessOperator`."""
     key = _material_fingerprint(problem)
     cached = problem._mg_cache
     if cached is not None and cached[0] == key:
         return cached[1], cached[2]
 
-    from .fem.multigrid import build_structured_multigrid
+    from .fem.multigrid import (build_structured_multigrid,
+                                build_unstructured_multigrid)
     mesh = problem.mesh
     mask = free_mask_from_bcs(problem.n_dofs, problem.bcs)
     info = mesh.structured_info
@@ -443,7 +445,7 @@ def _get_multigrid(problem: Problem):
         if per_hex:
             iref = int(np.argmax(mu_e))
             lam0, mu0 = float(lam_e[iref]), float(mu_e[iref])
-            # hex order from models.beams._hex_conn is x-major (ix slowest);
+            # hex order from grid._hex_conn is x-major (ix slowest);
             # the stencil operator wants a z-major [nz, ny, nx] grid
             esc = (mu_h[:, 0] / mu0).reshape(nx, ny, nz).transpose(2, 1, 0)
             if np.all(esc == 1.0):
@@ -457,10 +459,14 @@ def _get_multigrid(problem: Problem):
                 op = mg = None
     if op is None:
         if os.environ.get("TOPOPT_MG", "bell").lower() == "galerkin":
-            raise NotImplementedError(
-                "TOPOPT_MG=galerkin (the voxel-probing Galerkin hierarchy) "
-                "is not ported yet (ROADMAP Queue A item 12)")
-        op, mg, problem._mg_build_info = _get_bell_multigrid(problem, mask)
+            info = {"route": "galerkin"}
+            op, mg = build_unstructured_multigrid(
+                mesh, problem.lam, problem.mu, free_mask=mask,
+                dtype=problem.dtype, device=problem.device, info=info)
+            problem._mg_build_info = info
+        else:
+            op, mg, problem._mg_build_info = _get_bell_multigrid(problem,
+                                                                 mask)
     problem._mg_cache = (key, op, mg)
     return op, mg
 

@@ -61,7 +61,7 @@ constexpr int WIN_TY = 2;    // nodes per tile along y
 constexpr int WIN_NB = 4;    // z-planes per tile
 constexpr int WIN_THREADS = WIN_TX * WIN_TY * WIN_NB;
 
-// hex corner offsets (iz, iy, ix) in VTK order, as in models/beams.py
+// hex corner offsets (iz, iy, ix) in VTK order, as in grid.py
 __device__ constexpr int OZ[8] = {0, 0, 0, 0, 1, 1, 1, 1};
 __device__ constexpr int OY[8] = {0, 0, 1, 1, 0, 0, 1, 1};
 __device__ constexpr int OX[8] = {0, 1, 1, 0, 0, 1, 1, 0};

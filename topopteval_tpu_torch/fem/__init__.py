@@ -4,3 +4,5 @@ from .operator import StiffnessOperator, assemble_scipy
 from .solvers import (KrylovResult, apply_preconditioner,
                       block_jacobi_preconditioner, cg, direct_solve,
                       jacobi_preconditioner)
+from .multigrid import (MultigridPreconditioner, build_structured_multigrid,
+                        build_unstructured_multigrid)

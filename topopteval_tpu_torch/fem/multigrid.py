@@ -1,10 +1,12 @@
-"""Geometric multigrid preconditioner for structured box meshes
-(counterpart of ``topopteval_tpu.fem.multigrid``, structured part).
+"""Geometric multigrid preconditioners (counterpart of
+``topopteval_tpu.fem.multigrid``): the structured-box hierarchy and the
+Galerkin voxel hierarchy for any mesh (``build_unstructured_multigrid``,
+the ``TOPOPT_MG=galerkin`` route).
 
 The reference's answer to large problems is Jacobi-preconditioned Krylov
 (reference: FiniteElementAnalysis.jl:570-598; RobustSolver.jl:196-216),
 whose iteration count grows like n^(1/3).  This is a matrix-free geometric
-V-cycle on the nested structured grids of models/beams.py: trilinear
+V-cycle on the nested structured grids of grid.py: trilinear
 transfer operators as row gathers and a deterministic incidence
 gather-sum, damped block-Jacobi (or Chebyshev) smoothing, and an exact
 dense solve on the coarsest level, giving mesh-independent CG iteration
@@ -14,6 +16,13 @@ Used as the preconditioner ``M`` of :func:`..fem.solvers.cg` (symmetric
 V-cycle with symmetric smoother + exact coarse solve → SPD).  The
 hierarchy is built once per mesh on the host in float64; the V-cycle runs
 on the operator's device.
+
+The Galerkin voxel hierarchy embeds any mesh in a voxel lattice: level 1
+is P^T A P by colored probing of the matrix-free fine operator, the levels
+below it host RAP products, all stored as :class:`.ell.ELLBlockOperator`
+(kernel B9a), with transfers as row-wise ELL tables (:class:`EllTransfer`,
+kernel B9b).  The JAX package's ``chunked`` transfer lowering and width-8
+loops exist for TPU padding and have no counterpart.
 """
 
 from __future__ import annotations
@@ -25,8 +34,10 @@ import numpy as np
 import torch
 
 from ..mesh import Mesh, resolve_device
-from ..models.beams import _TET_SPLIT, generate_grid_hex, generate_grid_tet
+from ..grid import _TET_SPLIT, generate_grid_hex, generate_grid_tet
+from ..ops.ell import pack_ell_rows, sell_matvec_window
 from ..ops.stencil import CORNER_OFFSETS
+from .host_operator import HostFineOperator, block_power_iteration
 from .operator import StiffnessOperator, assemble_scipy
 from .solvers import block_jacobi_preconditioner
 from .structured import StructuredStiffnessOperator
@@ -245,6 +256,73 @@ class Transfer:
         return torch.sum(contrib[self.incidence], dim=1)
 
 
+@dataclasses.dataclass(frozen=True)
+class EllTable:
+    """A scalar-weight matrix as row-wise ELL (``ops/ell.pack_ell_rows``),
+    applied to node-major [n_cols, 3] rows by ``sell_matvec_window``."""
+
+    cols2: torch.Tensor      # [Nt*S, 128] int32
+    w2: torch.Tensor         # [Nt*S, 128] weights, slot-major
+    wblk: torch.Tensor       # [Nt] int32
+    gbounds: torch.Tensor    # [Nt, 1, 2*S/8] int32 (JAX signature only)
+    S: int
+    kc: int
+    n_rows: int
+
+    @staticmethod
+    def from_triplets(rows, cols, w, n_rows: int, n_cols: int, dtype,
+                      device) -> "EllTable":
+        pk = pack_ell_rows(rows, cols, np.asarray(w, np.float64), n_rows,
+                           n_cols)
+
+        def t(key, dt=None):
+            return torch.as_tensor(pk[key], dtype=dt, device=device)
+
+        return EllTable(t("cols2"), t("vals2", dtype), t("wblk"),
+                        t("gbounds"), pk["S"], pk["kc"], int(n_rows))
+
+    def apply(self, u: torch.Tensor) -> torch.Tensor:
+        return sell_matvec_window(self.cols2, self.w2, self.wblk,
+                                  self.gbounds, u, self.S, self.kc,
+                                  node_major=True, n_rows=self.n_rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class EllTransfer:
+    """The :class:`Transfer` pair as two row-wise ELL tables: P over the
+    fine rows and P^T over the coarse rows, each row summed in column
+    order by kernel B9b on the card (its plain version on the CPU)."""
+
+    P: EllTable              # [N_f] rows over [N_c] columns
+    R: EllTable              # [N_c] rows over [N_f] columns
+
+    @staticmethod
+    def from_tables(parents: np.ndarray, weights: np.ndarray, n_coarse: int,
+                    dtype, device) -> "EllTransfer":
+        """From the [N_f, 8] parent/weight tables of
+        :func:`build_transfer_tables` / :func:`build_voxel_transfer`
+        (sentinel and zero-weight slots dropped)."""
+        n_fine = parents.shape[0]
+        live = (weights > 0) & (parents < n_coarse)
+        rows = np.repeat(np.arange(n_fine), parents.shape[1]).reshape(
+            parents.shape)[live]
+        cols = parents[live].astype(np.int64)
+        w = weights[live]
+        return EllTransfer(
+            EllTable.from_triplets(rows, cols, w, n_fine, n_coarse, dtype,
+                                   device),
+            EllTable.from_triplets(cols, rows, w, n_coarse, n_fine, dtype,
+                                   device))
+
+    def prolong(self, u_c: torch.Tensor) -> torch.Tensor:
+        """[N_c, 3] → [N_f, 3]."""
+        return self.P.apply(u_c)
+
+    def restrict(self, r_f: torch.Tensor) -> torch.Tensor:
+        """[N_f, 3] → [N_c, 3]: P^T."""
+        return self.R.apply(r_f)
+
+
 # ---------------------------------------------------------------------------
 # Host-side (NumPy) hierarchy build functions, float64
 # ---------------------------------------------------------------------------
@@ -442,7 +520,7 @@ class MultigridPreconditioner:
 
 def _per_element_material(lam, mu, esc, element: str):
     """(lam, mu) per element from a per-hex scale grid [nz, ny, nx]: the
-    generators number hexes x-major (models/beams.py _hex_conn), with 6
+    generators number hexes x-major (grid.py _hex_conn), with 6
     tets per hex on tet meshes."""
     if esc is None:
         return lam, mu
@@ -577,3 +655,349 @@ def build_structured_multigrid(
     mg = MultigridPreconditioner(tuple(levels[:-1]), coarse_inv,
                                  omega=omega, nu=nu)
     return fine_mesh, fine_op, mg
+
+
+# ---------------------------------------------------------------------------
+# Galerkin voxel multigrid (any mesh)
+# ---------------------------------------------------------------------------
+
+
+def galerkin_voxel_operator(op, transfer: EllTransfer, mask_c: np.ndarray,
+                            dims: Tuple[int, int, int],
+                            reach: Tuple[int, int, int] = (2, 2, 2),
+                            dtype: torch.dtype = torch.float32):
+    """True Galerkin coarse operator A_c = P^T A' P on the voxel lattice,
+    computed by COLORED PROBING of the matrix-free fine operator: coarse
+    lattice nodes of the same (mod 2*reach+1 per axis) color have disjoint
+    in-reach stencils, so prod(2r+1)*3 masked matvecs recover every 3x3
+    coupling block exactly.  The probes run one after another on the
+    operator's device; the extraction runs on the host in float64.
+
+    Rediscretized voxel operators diverge on porous/optimized geometry (no
+    relation to P^T A P); the Galerkin form makes the coarse-grid
+    correction an A-orthogonal projection, never error-increasing.
+
+    Returns (ELLBlockOperator, updated mask_c): coarse dofs with an empty
+    Galerkin row (voxel corners supporting no fine node) become fixed.
+    """
+    from .ell import ELLBlockOperator
+
+    device = op.free_mask.device
+    vx, vy, vz = (int(d) for d in dims)
+    nxn, nyn, nzn = vx + 1, vy + 1, vz + 1
+    N_c = nxn * nyn * nzn
+    rx, ry, rz = reach
+    px, py, pz = 2 * rx + 1, 2 * ry + 1, 2 * rz + 1
+    n_probes = px * py * pz * 3
+
+    iz, iy, ix = np.meshgrid(np.arange(nzn), np.arange(nyn),
+                             np.arange(nxn), indexing="ij")
+    ix, iy, iz = ix.ravel(), iy.ravel(), iz.ravel()
+    color = torch.as_tensor(((iz % pz) * py + iy % py) * px + ix % px,
+                            device=device)
+    mask_c2 = torch.as_tensor(mask_c, dtype=dtype,
+                              device=device).reshape(N_c, 3)
+    eye3 = torch.eye(3, dtype=dtype, device=device)
+    W = torch.empty((n_probes, N_c * 3), dtype=dtype, device=device)
+    for pidx in range(n_probes):
+        # probe pidx = 3 * ((cz * py + cy) * px + cx) + b
+        ind = (color == pidx // 3).to(dtype)
+        e = ind[:, None] * eye3[pidx % 3][None, :] * mask_c2
+        v = transfer.prolong(e)                 # [N_f, 3], already zero
+        w = op.matvec(v.reshape(-1))            # at fine fixed dofs
+        W[pidx] = (transfer.restrict(w.reshape(-1, 3)) * mask_c2).reshape(-1)
+    W = W.double().cpu().numpy().reshape(n_probes, N_c, 3)
+
+    # host extraction: for row i and lattice offset o, the probed value at
+    # i in the probe colored like j = i + o IS the (i, j) block column
+    offsets = [(dx, dy, dz)
+               for dz in range(-rz, rz + 1)
+               for dy in range(-ry, ry + 1)
+               for dx in range(-rx, rx + 1)]
+    O = len(offsets)
+    cols_full = np.full((N_c, O), N_c, dtype=np.int64)
+    blocks_full = np.zeros((N_c, O, 3, 3))
+    rows_idx = np.arange(N_c)
+    for o_idx, (dx, dy, dz) in enumerate(offsets):
+        jx, jy, jz = ix + dx, iy + dy, iz + dz
+        valid = ((jx >= 0) & (jx < nxn) & (jy >= 0) & (jy < nyn)
+                 & (jz >= 0) & (jz < nzn))
+        j = jx + jy * nxn + jz * nxn * nyn
+        base = (((jz % pz) * py + jy % py) * px + jx % px) * 3
+        for b in range(3):
+            vals = W[base + b, rows_idx, :]      # [N_c, 3]
+            blocks_full[valid, o_idx, :, b] = vals[valid]
+        cols_full[valid, o_idx] = j[valid]
+
+    # pack rows: drop zero blocks, fix dofs whose Galerkin diagonal is 0
+    nz = (np.abs(blocks_full).max(axis=(2, 3)) > 0) & (cols_full < N_c)
+    o_diag = offsets.index((0, 0, 0))
+    diag = blocks_full[:, o_diag][:, np.arange(3), np.arange(3)]  # [N_c,3]
+    mask_new = np.asarray(mask_c, np.float64).reshape(N_c, 3).copy()
+    mask_new[diag <= 0] = 0.0
+    counts = nz.sum(axis=1)
+    D = max(int(counts.max()) if N_c else 1, 1)
+    order = np.argsort(~nz, axis=1, kind="stable")[:, :D]
+    packed_nz = np.take_along_axis(nz, order, axis=1)
+    cols_p = np.where(packed_nz,
+                      np.take_along_axis(cols_full, order, axis=1), N_c)
+    blocks_p = np.where(packed_nz[:, :, None, None],
+                        np.take_along_axis(
+                            blocks_full, order[:, :, None, None]
+                            .repeat(3, 2).repeat(3, 3), axis=1), 0.0)
+    ell = ELLBlockOperator.from_block_rows(cols_p, blocks_p,
+                                           mask_new.reshape(-1), dtype,
+                                           device)
+    return ell, mask_new.reshape(-1)
+
+
+def _rap_host(ell, parents: np.ndarray, weights: np.ndarray,
+              n_coarse_nodes: int, mask_c: np.ndarray, dtype):
+    """Host Galerkin triple product A_{l+1} = P^T A_l P between ELL levels
+    (small matrices, scipy CSR math), returning (ELL operator, mask)."""
+    import scipy.sparse as sp
+    from .ell import ELLBlockOperator
+
+    K = ell.to_scipy_bsr()                       # raw fp64
+    N_f = parents.shape[0]
+    live = (weights > 0) & (parents < n_coarse_nodes)
+    rows = np.repeat(np.arange(N_f), parents.shape[1]).reshape(
+        N_f, -1)[live]
+    P_node = sp.coo_matrix((weights[live], (rows, parents[live])),
+                           shape=(N_f, n_coarse_nodes)).tocsr()
+    P_dof = sp.kron(P_node, sp.eye(3), format="csr")
+    A2 = (P_dof.T @ K @ P_dof).tocsr()
+    # prune numerical noise to keep the ELL width tight
+    if A2.nnz:
+        tol = 1e-14 * np.abs(A2.diagonal()).max()
+        A2.data[np.abs(A2.data) < tol] = 0.0
+        A2.eliminate_zeros()
+    # fix dofs with empty/zero diagonal
+    d = A2.diagonal()
+    mask_new = np.asarray(mask_c, np.float64).reshape(-1).copy()
+    mask_new[d <= 0] = 0.0
+    return (ELLBlockOperator.from_scipy_bsr(A2, mask_new, dtype, ell.device),
+            mask_new)
+
+
+def estimate_smoother_lambda_max(op, binv: torch.Tensor, iters: int = 30,
+                                 seed: int = 0) -> float:
+    """lambda_max(B^-1 A) by power iteration on the operator's device.  The
+    damped block-Jacobi smoother needs omega * lambda_max < 2 to contract;
+    unstructured meshes push lambda_max to ~3-4, so it is measured, not
+    assumed.  The start vector comes from ``torch.Generator`` seeded with
+    ``seed`` on the CPU, so every device starts from the same vector (not
+    the JAX package's: its generator differs)."""
+    mask = op.free_mask
+    gen = torch.Generator().manual_seed(seed)
+    v = torch.randn(op.n_dofs, generator=gen, dtype=mask.dtype).to(
+        mask.device) * mask
+    v = v / torch.linalg.vector_norm(v)
+    lam = 0.0
+    for _ in range(iters):
+        w = _apply_blocks(binv, op.matvec(v).reshape(-1, 3)).reshape(-1)
+        lam = float(torch.linalg.vector_norm(w))
+        v = w / max(lam, 1e-300)
+    return lam
+
+
+def _host_binv_and_lambda_max(ell, mask: np.ndarray, iters: int = 30):
+    """Host fp64 (block_jacobi_preconditioner, power iteration) of an ELL
+    Galerkin level."""
+    A = ell.to_scipy_bsr()
+    N = ell.n_nodes
+    m = np.asarray(mask, np.float64).reshape(-1)
+    m3 = m.reshape(N, 3)
+    Ab = A.tobsr(blocksize=(3, 3))
+    Ab.sort_indices()
+    diag = np.zeros((N, 3, 3))
+    counts = Ab.indptr[1:] - Ab.indptr[:-1]
+    rows = np.repeat(np.arange(N), counts)
+    sel = Ab.indices == rows
+    diag[rows[sel]] = Ab.data[sel]
+    eye = np.eye(3)
+    bm = diag * (m3[:, :, None] * m3[:, None, :]) \
+        + (1.0 - m3)[:, :, None] * eye
+    det = np.linalg.det(bm)
+    bm[det == 0] = eye
+    binv = np.linalg.inv(bm)
+    lam = block_power_iteration(
+        lambda v: m * (A @ (m * v)) + (1.0 - m) * v, binv, m, iters)
+    return binv, lam
+
+
+#: voxel spacing of the lattice over the mean node spacing
+_VOXEL_COARSEN = 2.0
+#: Chebyshev smoothing steps before and after the coarse correction
+_VOXEL_NU = 2
+#: quadrature order of the fine operator and its host twin
+_VOXEL_ORDER = 2
+
+
+def build_unstructured_multigrid(
+        mesh: Mesh, lam, mu,
+        free_mask: Optional[np.ndarray] = None,
+        dtype: torch.dtype = torch.float32,
+        max_coarse_dofs: int = 4000,
+        device="cuda",
+        info: Optional[dict] = None,
+) -> Tuple[StiffnessOperator, MultigridPreconditioner]:
+    """Matrix-free V-cycle preconditioner for an ARBITRARY mesh.
+
+    Fine level = the matrix-free :class:`StiffnessOperator` (``otf``: the
+    element-apply kernels); coarse levels = Galerkin operators on an
+    embedded voxel lattice (:class:`.ell.ELLBlockOperator`).  ``lam``/``mu``
+    may be per-element arrays (SIMP).  Every level smooths with Chebyshev
+    over its measured lambda_max(B^-1 A).  ``info``, when given, receives
+    the lattice, the level sizes and the build seconds by phase.
+
+    Returns (fine operator, MultigridPreconditioner), a drop-in ``M`` for
+    :func:`..fem.solvers.cg`.
+    """
+    import time as _time
+
+    device = resolve_device(device)
+    info = {} if info is None else info
+    phases = info.setdefault("phases", {})
+    t_start = _time.perf_counter()
+
+    def tick(label, t0):
+        now = _time.perf_counter()
+        phases[label] = now - t0
+        return now
+
+    C = mesh.n_cells
+    lam_e = np.broadcast_to(np.asarray(lam, np.float64), (C,))
+    mu_e = np.broadcast_to(np.asarray(mu, np.float64), (C,))
+    if free_mask is None:
+        free_mask = np.ones(mesh.n_dofs)
+    free_np = np.asarray(free_mask, np.float64).reshape(-1)
+
+    # --- fine level ---------------------------------------------------------
+    t0 = _time.perf_counter()
+    op = StiffnessOperator.build(
+        mesh.device(dtype=dtype, device=device), np.array(lam_e),
+        np.array(mu_e),
+        free_mask=torch.as_tensor(free_np, dtype=dtype, device=device),
+        mode="otf", order=_VOXEL_ORDER)
+    host_fine = HostFineOperator(mesh, lam_e, mu_e, free_np, _VOXEL_ORDER)
+    binv_np = _host_block_jacobi(host_fine.node_blocks(), free_np)
+    binv_fine = torch.as_tensor(binv_np, dtype=dtype, device=device)
+    t0 = tick("fine_op_and_blocks", t0)
+
+    # --- voxel lattice dims -------------------------------------------------
+    lo, hi = mesh.bounding_box()
+    extent = np.maximum(hi - lo, 1e-300)
+    # voxel edge ~ _VOXEL_COARSEN x mean node spacing (bbox-based estimate)
+    h = _VOXEL_COARSEN * (float(np.prod(extent))
+                   / max(mesh.n_nodes, 1)) ** (1.0 / 3.0)
+    dims0 = np.maximum(np.round(extent / h).astype(int), 1)
+
+    # structured levels below the voxel level: round dims up to multiples
+    # of 2^(L-1); pick the fewest voxel levels whose coarsest fits the
+    # dense inverse
+    def rounded(L):
+        f = 2 ** (L - 1)
+        dr = ((dims0 + f - 1) // f) * f
+        nd = 3 * int(np.prod(dr // f + 1))
+        return dr, nd
+
+    L = 1
+    while True:
+        dims_r, ndc = rounded(L)
+        if ndc <= max_coarse_dofs or L >= 12:
+            break
+        L += 1
+    if ndc > max_coarse_dofs:
+        raise ValueError(
+            f"coarsest voxel level has {ndc} dofs > max_coarse_dofs="
+            f"{max_coarse_dofs}")
+    vx, vy, vz = (int(x) for x in dims_r)
+
+    # --- fine → voxel transfer + Galerkin level 1 ----------------------------
+    parents, weights, _ = build_voxel_transfer(mesh.coords, lo, hi,
+                                               (vx, vy, vz))
+    n_vox_nodes = (vx + 1) * (vy + 1) * (vz + 1)
+    transfer0 = EllTransfer.from_tables(parents, weights, n_vox_nodes,
+                                        dtype, device)
+    fixed_c = propagate_fixed(parents, weights,
+                              free_np.reshape(-1, 3) == 0, n_vox_nodes)
+    mask_c = np.where(fixed_c, 0.0, 1.0).reshape(-1)
+
+    lam_max_fine = host_fine.power_lambda_max(binv_np)
+    del host_fine, binv_np
+    levels = [MGLevel(op, binv_fine, transfer0, lam_max=lam_max_fine)]
+    t0 = tick("transfer_and_fine_lambda_max", t0)
+
+    # coupling reach on the lattice: an element spanning k voxels along an
+    # axis links corners k+1 apart; reach 2 covers elements up to one
+    # voxel wide (_VOXEL_COARSEN >= 2 guarantees this for graded
+    # meshes, but irregular imports can contain outlier elements)
+    X = mesh.coords[mesh.conn]
+    ext = X.max(axis=1) - X.min(axis=1)           # [C, 3]
+    del X
+    h_vox = (np.asarray(hi) - np.asarray(lo)) / np.array([vx, vy, vz])
+    reach = tuple(int(r) for r in
+                  np.clip(np.ceil(ext.max(axis=0) / h_vox) + 1, 2, 4))
+
+    ell, mask_c = galerkin_voxel_operator(op, transfer0, mask_c,
+                                          (vx, vy, vz), reach=reach,
+                                          dtype=dtype)
+    t0 = tick("probing", t0)
+
+    # --- Galerkin (RAP) coarser levels ---------------------------------------
+    cur_dims = (vx, vy, vz)
+    level_nodes = [mesh.n_nodes, n_vox_nodes]
+    widths = [ell.S]
+    for li in range(L):
+        binv_np, lam_max_l = _host_binv_and_lambda_max(ell, mask_c)
+        binv = torch.as_tensor(binv_np, dtype=dtype, device=device)
+        if li + 1 < L:
+            cnx, cny, cnz = cur_dims
+            p2, w2, _ = build_transfer_tables(cnx, cny, cnz)
+            n_coarse = (cnx // 2 + 1) * (cny // 2 + 1) * (cnz // 2 + 1)
+            transfer = EllTransfer.from_tables(p2, w2, n_coarse, dtype,
+                                               device)
+            fixed_next = propagate_fixed(p2, w2,
+                                         mask_c.reshape(-1, 3) == 0,
+                                         n_coarse)
+            mask_next = np.where(fixed_next, 0.0, 1.0).reshape(-1)
+            levels.append(MGLevel(ell, binv, transfer, lam_max=lam_max_l))
+            ell, mask_c = _rap_host(ell, p2, w2, n_coarse, mask_next, dtype)
+            cur_dims = (cnx // 2, cny // 2, cnz // 2)
+            level_nodes.append(n_coarse)
+            widths.append(ell.S)
+        else:
+            levels.append(MGLevel(ell, binv, None, lam_max=lam_max_l))
+    t0 = tick("coarse_levels", t0)
+
+    # --- coarsest level: eigendecomposition pseudo-inverse -------------------
+    # On porous/optimized geometry a voxel can contain fewer fine nodes
+    # than its corners carry coarse basis functions, making P^T A P
+    # locally RANK-DEFICIENT (nonzero diagonal, singular matrix): a plain
+    # inverse explodes the V-cycle.  The eigenvalue-cutoff pseudo-inverse
+    # keeps the coarse correction an A-orthogonal projection onto the
+    # well-represented subspace: still exactly non-expansive.
+    K_c = ell.to_dense_constrained()
+    K_c = 0.5 * (K_c + K_c.T)
+    evals, evecs = np.linalg.eigh(K_c)
+    inv_e = coarse_pinv_weights(evals, dtype)
+    inv_np = (evecs * inv_e) @ evecs.T
+    m_c = np.asarray(mask_c, np.float64).reshape(-1)
+    coarse_inv = torch.as_tensor(m_c[:, None] * inv_np * m_c[None, :],
+                                 dtype=dtype, device=device)
+    t0 = tick("coarsest_pinv", t0)
+
+    # the Jacobi damping the JAX package records beside its Chebyshev
+    # smoother (no level smooths with it: each has its lambda_max)
+    omega = float(min(0.7, 1.4 / max(lam_max_fine, 1e-6)))
+    info.update({"lattice": (vx, vy, vz), "voxel_levels": L,
+                 "reach": reach, "n_probes": 3 * int(np.prod(
+                     [2 * r + 1 for r in reach])),
+                 "level_nodes": level_nodes, "ell_widths": widths,
+                 "lam_max_fine": lam_max_fine, "omega": omega,
+                 "build_seconds": _time.perf_counter() - t_start})
+    mg = MultigridPreconditioner(tuple(levels[:-1]), coarse_inv,
+                                 omega=omega, nu=_VOXEL_NU,
+                                 smoother="chebyshev")
+    return op, mg

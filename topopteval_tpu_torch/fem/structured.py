@@ -1,7 +1,7 @@
 """Stencil (gather-free) matrix-free operator for structured box meshes
 (counterpart of ``topopteval_tpu.fem.structured``).
 
-On the uniform grids of models/beams.py every hexahedron is congruent, so
+On the uniform grids of grid.py every hexahedron is congruent, so
 each of its 6 tetrahedra has constant physical shape-function gradients
 and one assembled 24x24 hex stiffness serves every cell.  The matvec then
 needs no connectivity at all: it is the fused stencil of ops/stencil.py
@@ -20,13 +20,13 @@ import numpy as np
 import torch
 
 from ..mesh import resolve_device
-from ..models.beams import _TET_SPLIT
+from ..grid import _TET_SPLIT
 from ..ops.stencil import CORNER_OFFSETS, stencil_matvec
 
 
 def _reference_tet_gradients(dx: float, dy: float, dz: float):
     """Constant gradients g [6, 4, 3] + volumes [6] for the 6 congruent
-    tets of a dx*dy*dz hex (split _TET_SPLIT, models/beams.py)."""
+    tets of a dx*dy*dz hex (split _TET_SPLIT, grid.py)."""
     corners = np.array([(ox * dx, oy * dy, oz * dz)
                         for (oz, oy, ox) in CORNER_OFFSETS])
     g = np.zeros((6, 4, 3))

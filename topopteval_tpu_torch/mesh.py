@@ -205,7 +205,7 @@ class Mesh:
                 f"number of cells ({len(conn)})")
         self.cellsets: Dict[str, np.ndarray] = dict(cellsets or {})
         self._surface_cache = None  # lazy (reference: SelectNodesForBC.jl:30-38)
-        #: set by the structured generators (models/beams.py): cell counts
+        #: set by the structured generators (grid.py): cell counts
         #: and box corners; None for an imported mesh
         self.structured_info = None
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..mesh import resolve_device
 
 #: kernel launches per wrapper; only a launch of the CUDA kernel counts
 LAUNCHES = {"bell_matvec": 0, "sell_matvec": 0}
@@ -118,8 +119,10 @@ def csr_arrays(rows, cols, data, n_rows: int):
 
 
 def pack_csr(rows, cols, data, n_rows: int, n_cols: int, dtype=None,
-             device="cpu") -> BlockCSR:
-    """:func:`csr_arrays` straight to a :class:`BlockCSR` on ``device``."""
+             device="cuda") -> BlockCSR:
+    """:func:`csr_arrays` straight to a :class:`BlockCSR` on ``device``
+    (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     indptr, cols, data = csr_arrays(rows, cols, data, n_rows)
     dtype = dtype or torch.from_numpy(np.zeros(0, data.dtype)).dtype
     return BlockCSR.from_numpy(indptr, cols, data, n_cols, dtype, device)

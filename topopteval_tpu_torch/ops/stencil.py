@@ -45,7 +45,7 @@ LAUNCHES = {"stencil_plane": 0, "stencil_window": 0}
 
 KERNELS = ("plane", "window")
 
-#: hex corner offsets in (iz, iy, ix), VTK order (matches models/beams.py)
+#: hex corner offsets in (iz, iy, ix), VTK order (matches grid.py)
 CORNER_OFFSETS = ((0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0),
                   (1, 0, 0), (1, 0, 1), (1, 1, 1), (1, 1, 0))
 
