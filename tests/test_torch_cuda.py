@@ -605,6 +605,109 @@ def test_galerkin_hierarchy_on_cuda_matches_cpu(cuda):
             assert ell.LAUNCHES["bell_window"] > 0
             assert ell.LAUNCHES["sell_window"] > 0
         else:
-            assert ell.LAUNCHES == {"bell_window": 0, "sell_window": 0}
+            assert not any(ell.LAUNCHES.values())
     scale = float(out["cpu"].abs().max())
     assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-10 * scale
+
+
+# ---------------------------------------------------------------------------
+# the probes' kernels: Ke in the lane layout (T1), the ELL ablation (T2)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("block", [128, 256, 512])
+@pytest.mark.parametrize("variant", ["cse", "lanes"])
+def test_ke_lane_variants_match_plain_version_and_b6(cuda, variant, block,
+                                                     dtype):
+    """Both probe variants against their plain version and against B6 in
+    the lane layout, on a perturbed box with per-element materials; the
+    padded lanes come out zero."""
+    from topopteval_tpu_torch.ops import ke_kernels as kk
+    coords, conn, _, lam, mu = _inputs("tet4", dtype, cuda, nx=9, ny=4,
+                                       nz=3)
+    C = conn.shape[0]
+    ct, Cp = kk.element_coords_lanes(coords, conn, block)
+    lam2, mu2 = kk.pad_lanes(lam, Cp), kk.pad_lanes(mu, Cp)
+    fn = kk.tet4_ke_cse if variant == "cse" else kk.tet4_ke_lanes
+    name = f"tet4_ke_{variant}"
+    before = kk.LAUNCHES[name]
+    out = fn(ct, lam2, mu2, block)
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES[name] == before + 1
+    ref = kk.tet4_ke_lanes_reference(ct, lam2, mu2)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+    assert not bool(out[:, C:].any())
+    b6 = kk.tet4_ke(coords, conn, lam, mu).reshape(C, 144).t()
+    assert float((out[:, :C] - b6).abs().max()) <= TOL[dtype] * scale
+
+
+def test_ke_lane_wrapper_rejects_bad_inputs(cuda):
+    from topopteval_tpu_torch.ops import ke_kernels as kk
+    ct = torch.zeros((12, 256), dtype=torch.float32, device=cuda)
+    row = torch.zeros((1, 256), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        kk.tet4_ke_cse(ct, row, row, 512)
+    with pytest.raises(ValueError, match="mu2"):
+        kk.tet4_ke_lanes(ct, row, row.cpu(), 128)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["packed", "cut_window"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ell_ablate_modes_match_plain_version(cuda, dtype, cut):
+    """Every mode against its plain version on random banded triplets with
+    empty rows, the packed window and one cut by hand to kc = 1; ``full``
+    and ``noskip`` also against B9a, ``empty`` all zeros."""
+    from topopteval_tpu_torch.ops import ell
+    pk, t, u = _ell_inputs(cuda, dtype)
+    kc = 1 if cut else pk["kc"]
+    args = (t["cols2"], t["vals2"], t["wblk"], t["gbounds"], u, pk["S"], kc)
+    b9a = ell.bell_matvec_window(*args)
+    scale = float(b9a.abs().max())
+    for mode in ell.ABLATE_MODES:
+        before = ell.LAUNCHES["bell_ablate"]
+        out = ell.bell_ablate(mode, *args)
+        torch.cuda.synchronize()
+        assert ell.LAUNCHES["bell_ablate"] == before + 1
+        ref = ell.bell_ablate_reference(mode, *args)
+        assert out.shape == ref.shape == (3, t["wblk"].shape[0] * 128)
+        tol = TOL[dtype] * max(float(ref.abs().max()), 1e-300)
+        assert float((out - ref).abs().max()) <= tol, mode
+        if mode in ("full", "noskip"):
+            assert float((out - b9a).abs().max()) <= TOL[dtype] * scale
+        if mode == "empty":
+            assert not bool(out.any())
+
+
+def test_ell_ablate_large_scratch(cuda):
+    """S = 72 in float64 needs 221 KB of shared memory a block: the opt-in
+    attribute path; S = 80 (240 KB) is refused with the sizes."""
+    from topopteval_tpu_torch.ops import ell
+    rng = np.random.default_rng(7)
+    n = 600
+    rows = np.repeat(np.arange(n), 70)
+    cols = np.clip(rows + rng.integers(-200, 201, rows.size), 0, n - 1)
+    pk = ell.pack_ell_rows(rows, cols, rng.standard_normal((rows.size, 3, 3)),
+                           n, n)
+    assert pk["S"] == 72
+    t = {k: torch.as_tensor(pk[k], device=cuda)
+         for k in ("cols2", "wblk", "gbounds")}
+    t["vals2"] = torch.as_tensor(pk["vals2"], device=cuda)
+    u = torch.as_tensor(rng.standard_normal((3, pk["n_cols_p"])),
+                        device=cuda)
+    args = (t["cols2"], t["vals2"], t["wblk"], t["gbounds"], u, 72,
+            pk["kc"])
+    out = ell.bell_ablate("full", *args)
+    ref = ell.bell_ablate_reference("full", *args)
+    assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    big = ell.pack_ell_rows(np.repeat(np.arange(n), 80),
+                            np.tile(np.arange(80), n),
+                            np.ones((80 * n, 3, 3)), n, n)
+    assert big["S"] == 80
+    with pytest.raises(ValueError, match="shared memory"):
+        ell.bell_ablate(
+            "full", torch.as_tensor(big["cols2"], device=cuda),
+            torch.as_tensor(big["vals2"], device=cuda),
+            torch.as_tensor(big["wblk"], device=cuda), None, u[:, :128],
+            80, big["kc"])

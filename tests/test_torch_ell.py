@@ -167,7 +167,7 @@ def test_window_node_major_views_equal_component_major(block):
                 n_rows=297)
         assert nm.shape == (297, 3)
         assert torch.equal(nm, cm[:, :297].t())
-    assert ell.LAUNCHES == {"bell_window": 0, "sell_window": 0}
+    assert not any(ell.LAUNCHES.values())      # the CPU launches nothing
 
 
 def test_window_wrappers_reject_what_the_kernels_do_not_take():

@@ -11,12 +11,15 @@ Routes of ``solve_system`` in this package: ``direct`` (host sparse LU),
 block-Jacobi PCG (``cg``) with float64 dots, multigrid PCG
 (``preconditioner="multigrid"``) on generated tet4 boxes through the
 stencil hierarchy of fem/multigrid.py and on every other mesh through the
-block-ELL hierarchy of fem/bell.py, float32 PCG inside float64
+block-ELL hierarchy of fem/bell.py (or, with ``TOPOPT_MG=galerkin``, the
+Galerkin voxel hierarchy of fem/multigrid.py), float32 PCG inside float64
 host-residual refinement, and the backward-error gate with its direct
-fallback.  Multi-device solves, the other Krylov methods, the
-``verbose=True`` robust ladder, ``TOPOPT_MG=galerkin`` and the monolithic
-block-ELL build are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+fallback.  These raise ``NotImplementedError`` naming their ROADMAP item:
+``devices=`` (multi-device solves, item 13), ``method`` ``minres``,
+``gmres`` or ``bicgstab`` and ``verbose=True`` outside multigrid (the
+robust ladder, item 9), a ``.msh`` mesh (item 10), and the block-ELL
+route where it needs the monolithic build: lam or mu <= 0, a skeleton
+over its byte budget, or a skeleton mismatch (item 6).
 """
 
 from __future__ import annotations
@@ -260,6 +263,14 @@ def assemble_stiffness_matrix_simp(problem: Problem,
 def apply_fixed_boundary(problem: Problem, nodes) -> DirichletBC:
     """reference: FiniteElementAnalysis.jl:314-333 (deferred application)."""
     bc = DirichletBC.fixed(nodes)
+    problem.bcs.append(bc)
+    return bc
+
+
+def apply_sliding_boundary(problem: Problem, nodes,
+                           fixed_components: Sequence[int]) -> DirichletBC:
+    """reference: FiniteElementAnalysis.jl:356-374 (0-based components)."""
+    bc = DirichletBC.sliding(nodes, fixed_components)
     problem.bcs.append(bc)
     return bc
 
@@ -722,7 +733,11 @@ def solve_system(problem: Problem,
                 u = _host_direct()
                 niter, rnorm, conv = 1, 0.0, True
                 method = "direct(verification-fallback)"
-                is_cm = False          # the direct solve is interleaved
+                # the direct solve is interleaved, and ``op`` may be the
+                # component-major block-ELL system: the energy and the
+                # stresses come from the direct route's own operator
+                op = problem.build_operator(with_bc=True)
+                is_cm = False
                 energy64 = None
                 u64 = None
                 history = None

@@ -28,7 +28,10 @@ class SolverConfig:
     method: 'direct' | 'cg' | 'minres' | 'gmres' | 'bicgstab' | 'auto'
     preconditioner: 'none' | 'diagonal' | 'block_diagonal' | 'ilu' | 'ichol'
         | 'multigrid'  ('ilu'/'ichol' map to block-diagonal, as in the JAX
-        package; 'multigrid' runs on generated tet4 boxes)
+        package; 'multigrid' runs on every mesh: the stencil hierarchy on
+        generated tet4 boxes, the block-ELL hierarchy, or with
+        ``TOPOPT_MG=galerkin`` the Galerkin voxel hierarchy, on any
+        other; fem/multigrid.py, fem/bell.py)
     """
 
     method: str = "auto"

@@ -46,6 +46,34 @@
 //   pair i, j), which sums its own 3x3 block over the points in 9
 //   registers and writes it once.  Consecutive threads take consecutive
 //   j, so a warp's stores cover runs of 3k values of one Ke row.
+//
+// tet4_ke_cse, tet4_ke_lanes  replace make_variant over _tet4_ke_kernel_cse
+//          (:27) and _tet4_ke_kernel_stack (:48) of tools/tpu_ke_probe.py:71,
+//          the TPU probe of two formulations of tet4_ke's function.  Both
+//          compute B6's Ke in the probe's layout: from pre-gathered element
+//          coordinates ct [12, Cp] (row 3k+a holds node k's coordinate a of
+//          every element), lam2 [1, Cp] and mu2 [1, Cp] they write
+//          out [144, Cp], entry-major: out[((3i+a)*12 + 3j+b) * Cp + c].
+//          Cp is a multiple of the elements per block E (128, 256 or 512,
+//          the template argument standing for the probe's block of 512 /
+//          1024 / 2048 lanes), so no block is ragged.
+//   Bound: memory, as B6: 14 values read and 144 written per element, 632
+//   B fp32; at 1,228,800 tets 776.6 MB, 0.232 ms at 3.35 TB/s (0.464 fp64).
+//   cse design: B6's two phases, with the common subexpressions of the
+//     probe's cse variant moved into phase 1.  Phase 1 (one thread per
+//     element) puts lam V g [4][3], mu V g [4][3], g [4][3] and the table
+//     mu V g_i . g_j [4][4] into shared memory, element-minor so that a
+//     warp reads 32 consecutive words; phase 2 writes the block's
+//     144 x E tile row by row, consecutive threads on consecutive elements
+//     of one entry row (coalesced stores), at 2 multiplies and 1-2 adds an
+//     entry against B6's ~7.  The tile's 52 E values take 26.6 KB (fp32,
+//     E = 128) to 213 KB (fp64, E = 512) of dynamic shared memory, set
+//     above 48 KB with cudaFuncSetAttribute.
+//   lanes design (the probe's "stack": one stacked [144, block] store):
+//     one thread per element keeps g, lam V g and mu V g in registers and
+//     writes its 144 values down the entry rows; for each entry all the
+//     threads of a warp store 32 consecutive elements, so every store is
+//     coalesced with no shared-memory tile at all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -256,6 +284,195 @@ int launch_iso_ke(const void* coords, const void* conn, const void* lam,
     return (int)cudaGetLastError();
 }
 
+// Geometry of one tet from its 12 coordinates (node-major x0,y0,z0,x1,...):
+// g[i][a] = dN_i/dx_a and V = det/6, with the det == 0 -> 1 guard, in the
+// order of _tet4_geometry (topopteval_tpu/ops/pallas_kernels.py:40).
+template <typename T>
+__device__ __forceinline__ void tet4_geometry(const T (&x)[12], T (&g)[4][3],
+                                              T& vol) {
+    T e[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) e[i][a] = x[3 * (i + 1) + a] - x[a];
+    const T c0 = e[1][1] * e[2][2] - e[1][2] * e[2][1];
+    const T c1 = e[1][2] * e[2][0] - e[1][0] * e[2][2];
+    const T c2 = e[1][0] * e[2][1] - e[1][1] * e[2][0];
+    const T det = e[0][0] * c0 + e[0][1] * c1 + e[0][2] * c2;
+    const T inv_det = T(1) / (det == T(0) ? T(1) : det);
+    const T adj[3][3] = {
+        {c0, e[0][2] * e[2][1] - e[0][1] * e[2][2],
+         e[0][1] * e[1][2] - e[0][2] * e[1][1]},
+        {c1, e[0][0] * e[2][2] - e[0][2] * e[2][0],
+         e[0][2] * e[1][0] - e[0][0] * e[1][2]},
+        {c2, e[0][1] * e[2][0] - e[0][0] * e[2][1],
+         e[0][0] * e[1][1] - e[0][1] * e[1][0]}};
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) g[i + 1][a] = adj[a][i] * inv_det;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) g[0][a] = -(g[1][a] + g[2][a] + g[3][a]);
+    vol = det / T(6);
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void load_lanes(const T* __restrict__ ct,
+                                           const T* __restrict__ lam2,
+                                           const T* __restrict__ mu2,
+                                           int64_t Cp, int64_t c, T (&g)[4][3],
+                                           T& lv, T& mv) {
+    T x[12];
+#pragma unroll
+    for (int r = 0; r < 12; ++r) x[r] = ct[r * Cp + c];
+    T vol;
+    tet4_geometry(x, g, vol);
+    lv = lam2[c] * vol;
+    mv = mu2[c] * vol;
+}
+
+// Shared tile of tet4_ke_cse, element-minor: [52][E] values per block
+constexpr int KE_CSE_THREADS = 256;
+constexpr int KE_CSE_ROWS = 52;     // lam V g 12, mu V g 12, g 12, table 16
+
+template <typename T, int E>
+__global__ void __launch_bounds__(KE_CSE_THREADS)
+tet4_ke_cse_kernel(const T* __restrict__ ct, const T* __restrict__ lam2,
+                   const T* __restrict__ mu2, T* __restrict__ out,
+                   int64_t Cp) {
+    extern __shared__ __align__(16) unsigned char ke_cse_smem[];
+    T* s = reinterpret_cast<T*>(ke_cse_smem);
+    T* s_lg = s;                   // [12][E]  lam V g_ia
+    T* s_mg = s + 12 * E;          // [12][E]  mu V g_ia
+    T* s_g = s + 24 * E;           // [12][E]  g_ia
+    T* s_md = s + 36 * E;          // [16][E]  mu V g_i . g_j
+    const int64_t c0 = (int64_t)blockIdx.x * E;
+    for (int e = threadIdx.x; e < E; e += KE_CSE_THREADS) {
+        T g[4][3], lv, mv;
+        load_lanes<T, E>(ct, lam2, mu2, Cp, c0 + e, g, lv, mv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+                s_lg[(3 * i + a) * E + e] = lv * g[i][a];
+                s_mg[(3 * i + a) * E + e] = mv * g[i][a];
+                s_g[(3 * i + a) * E + e] = g[i][a];
+            }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                s_md[(4 * i + j) * E + e] =
+                    mv * g[i][0] * g[j][0] + mv * g[i][1] * g[j][1] +
+                    mv * g[i][2] * g[j][2];
+    }
+    __syncthreads();
+    // entry row r = (3i+a)*12 + 3j+b; E is a multiple of the warp, so a
+    // warp's 32 entries share r (and a == b) and cover 32 elements
+    for (int idx = threadIdx.x; idx < 144 * E; idx += KE_CSE_THREADS) {
+        const int r = idx / E, e = idx - r * E;
+        const int row = r / 12, col = r - 12 * row;
+        const int i = row / 3, a = row - 3 * i;
+        const int j = col / 3, b = col - 3 * j;
+        T v = s_lg[row * E + e] * s_g[(3 * j + b) * E + e] +
+              s_mg[(3 * i + b) * E + e] * s_g[(3 * j + a) * E + e];
+        if (a == b) v += s_md[(4 * i + j) * E + e];
+        out[r * Cp + c0 + e] = v;
+    }
+}
+
+template <typename T, int E>
+__global__ void __launch_bounds__(E)
+tet4_ke_lanes_kernel(const T* __restrict__ ct, const T* __restrict__ lam2,
+                     const T* __restrict__ mu2, T* __restrict__ out,
+                     int64_t Cp) {
+    const int64_t c = (int64_t)blockIdx.x * E + threadIdx.x;
+    T g[4][3], lv, mv;
+    load_lanes<T, E>(ct, lam2, mu2, Cp, c, g, lv, mv);
+    T lg[4][3], mg[4][3];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            lg[i][a] = lv * g[i][a];
+            mg[i][a] = mv * g[i][a];
+        }
+    T* o = out + c;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const T md = mg[i][0] * g[j][0] + mg[i][1] * g[j][1] +
+                         mg[i][2] * g[j][2];
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+#pragma unroll
+                for (int b = 0; b < 3; ++b) {
+                    T v = lg[i][a] * g[j][b] + mg[i][b] * g[j][a];
+                    if (a == b) v += md;
+                    o[((3 * i + a) * 12 + 3 * j + b) * Cp] = v;
+                }
+        }
+}
+
+// cudaFuncSetAttribute for a dynamic tile above 48 KB; an error if the
+// card's opt-in limit is smaller than the tile
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    int dev = 0, limit = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&limit,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (bytes > (size_t)limit) return cudaErrorInvalidConfiguration;
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bytes);
+}
+
+template <typename T, int E>
+int launch_tet4_ke_t1(bool cse, const void* ct, const void* lam2,
+                      const void* mu2, void* out, long long Cp, void* stream) {
+    if (Cp <= 0) return 0;
+    if (Cp % E != 0) return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)(Cp / E);
+    if (cse) {
+        const size_t bytes = (size_t)KE_CSE_ROWS * E * sizeof(T);
+        const cudaError_t err = allow_smem(tet4_ke_cse_kernel<T, E>, bytes);
+        if (err != cudaSuccess) return (int)err;
+        tet4_ke_cse_kernel<T, E><<<blocks, KE_CSE_THREADS, bytes,
+                                   (cudaStream_t)stream>>>(
+            (const T*)ct, (const T*)lam2, (const T*)mu2, (T*)out,
+            (int64_t)Cp);
+    } else {
+        tet4_ke_lanes_kernel<T, E><<<blocks, E, 0, (cudaStream_t)stream>>>(
+            (const T*)ct, (const T*)lam2, (const T*)mu2, (T*)out,
+            (int64_t)Cp);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_tet4_ke_t1(bool cse, const void* ct, const void* lam2,
+                        const void* mu2, void* out, long long Cp, int E,
+                        void* stream) {
+    switch (E) {
+        case 128:
+            return launch_tet4_ke_t1<T, 128>(cse, ct, lam2, mu2, out, Cp,
+                                             stream);
+        case 256:
+            return launch_tet4_ke_t1<T, 256>(cse, ct, lam2, mu2, out, Cp,
+                                             stream);
+        case 512:
+            return launch_tet4_ke_t1<T, 512>(cse, ct, lam2, mu2, out, Cp,
+                                             stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes in ops/ke_kernels.py.  Every
@@ -301,6 +518,21 @@ int tet10_ke_f64(const void* coords, const void* conn, const void* lam,
     return launch_iso_ke<double, 10, 4>(coords, conn, lam, mu, table, out, C,
                                         stream);
 }
+
+// The probe variants (T1): ct [12, Cp], lam2 [1, Cp], mu2 [1, Cp] ->
+// out [144, Cp]; E (128, 256 or 512) elements per block divides Cp.
+#define KE_T1_ENTRY(NAME, T, CSE)                                              \
+    int NAME(const void* ct, const void* lam2, const void* mu2, void* out,     \
+             long long Cp, int E, void* stream) {                              \
+        return dispatch_tet4_ke_t1<T>(CSE, ct, lam2, mu2, out, Cp, E, stream); \
+    }
+
+KE_T1_ENTRY(tet4_ke_cse_f32, float, true)
+KE_T1_ENTRY(tet4_ke_cse_f64, double, true)
+KE_T1_ENTRY(tet4_ke_lanes_f32, float, false)
+KE_T1_ENTRY(tet4_ke_lanes_f64, double, false)
+
+#undef KE_T1_ENTRY
 
 const char* element_ke_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);

@@ -14,7 +14,8 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
-from ..mesh import FACE_TABLES, FULL_FACE_TABLES, Mesh, dofs_of_nodes
+from ..mesh import (DIM, FACE_TABLES, FULL_FACE_TABLES, Mesh,
+                    dofs_of_nodes)
 from ..utils.terminal import log
 
 
@@ -79,6 +80,26 @@ def select_nodes_by_plane(mesh: Mesh, point: Sequence[float],
     return sel
 
 
+def select_nodes_by_circle(mesh: Mesh, center: Sequence[float],
+                           normal: Sequence[float], radius: float,
+                           tolerance: float = 1.0) -> np.ndarray:
+    """Surface nodes on the plane and within radius + tolerance of center
+    (in-plane distance).
+
+    reference: SelectNodesForBC.jl:213-266, 356-368
+    """
+    on_plane = select_nodes_by_plane(mesh, center, normal, tolerance)
+    center = np.asarray(center, dtype=np.float64)
+    normal = np.asarray(normal, dtype=np.float64)
+    unit = normal / np.linalg.norm(normal)
+    v = mesh.coords[on_plane] - center
+    in_plane = v - np.outer(v @ unit, unit)
+    planar = np.linalg.norm(in_plane, axis=1)
+    sel = on_plane[planar <= radius + tolerance]
+    log(f"Selected {sel.size} surface nodes in the circular region")
+    return sel
+
+
 def nodes_at_plane(mesh: Mesh, axis: int, value: float,
                    tol: float = 1e-6) -> np.ndarray:
     """Brute-force axis-aligned node selection over ALL nodes (reference:
@@ -102,6 +123,21 @@ class DirichletBC:
                            else nodes, dtype=np.int64)
         dofs = dofs_of_nodes(nodes).reshape(-1)
         log(f"Defined fixed boundary conditions for {nodes.size} nodes")
+        return DirichletBC(np.unique(dofs))
+
+    @staticmethod
+    def sliding(nodes: Iterable[int],
+                fixed_components: Sequence[int]) -> "DirichletBC":
+        """Only the given components (0=x,1=y,2=z) fixed (reference:
+        FiniteElementAnalysis.jl:356-374, which is 1-based)."""
+        nodes = np.asarray(list(nodes) if not isinstance(nodes, np.ndarray)
+                           else nodes, dtype=np.int64)
+        comps = np.asarray(fixed_components, dtype=np.int64)
+        if comps.size and (comps.min() < 0 or comps.max() >= DIM):
+            raise ValueError("components must be in {0,1,2}")
+        dofs = (nodes[:, None] * DIM + comps[None, :]).reshape(-1)
+        log(f"Defined sliding boundary conditions for {nodes.size} nodes, "
+            f"fixing DOFs: {list(comps)}")
         return DirichletBC(np.unique(dofs))
 
 

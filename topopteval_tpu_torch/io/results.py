@@ -4,6 +4,10 @@ reference: src/ResultsExport/ResultsExport.jl).
 - displacement export (point data "u") — reference :25-37
 - stress export (cell data von_Mises_stress / principal_stress_max /
   principal_stress_min from qp-averaged tensors) — reference :55-92
+- boundary-condition visualization mesh (surface faces whose nodes share
+  one BC type, cell data "boundary_type": 1=fixed, 2=force) — reference
+  :108-193, on the canonical corner-node FACE_TABLES as in the JAX
+  package (the reference's private face order is a known quirk)
 """
 
 from __future__ import annotations
@@ -11,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..mesh import Mesh
+from ..mesh import FACE_TABLES, Mesh
 from ..utils.terminal import log
 from .vtu import write_vtu
 
@@ -64,4 +68,30 @@ def export_stress(stress: np.ndarray, mesh: Mesh, output_file: str) -> str:
         "principal_stress_min": pr[:, 0],
     })
     log(f"Stress results exported successfully to {path}")
+    return path
+
+
+def export_boundary_conditions(mesh: Mesh, fixed_nodes, force_nodes,
+                               output_file: str) -> str:
+    """Surface mesh of faces whose nodes all share one nonzero BC type
+    (reference: ResultsExport.jl:108-193).  Faces are taken by their corner
+    nodes (FACE_TABLES), so a tet10 face exports as a tri3."""
+    log(f"Exporting mesh with boundary conditions to {output_file}...")
+    bc = np.zeros(mesh.n_nodes, dtype=np.int64)
+    bc[np.asarray(list(fixed_nodes), dtype=np.int64)] = 1
+    bc[np.asarray(list(force_nodes), dtype=np.int64)] = 2
+
+    faces = np.asarray(FACE_TABLES[mesh.element_type], dtype=np.int64)
+    face_nodes = mesh.conn[:, faces].reshape(-1, faces.shape[1])  # [C*nf, fk]
+    types = bc[face_nodes]
+    same = (types == types[:, :1]).all(axis=1) & (types[:, 0] > 0)
+    sel = face_nodes[same]
+    sel_type = types[same, 0]
+
+    fk = faces.shape[1]
+    etype = "tri3" if fk == 3 else "quad4"
+    bmesh = Mesh(mesh.coords, sel.astype(np.int32), etype)
+    path = write_vtu(output_file, bmesh,
+                     cell_data={"boundary_type": sel_type.astype(np.int32)})
+    log(f"Boundary conditions successfully exported to {path}")
     return path

@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
+
 
 def lame_parameters(youngs_modulus: float, poissons_ratio: float
                     ) -> Tuple[float, float]:
@@ -26,6 +28,19 @@ def lame_parameters(youngs_modulus: float, poissons_ratio: float
 
 # API-parity alias (reference export `create_material_model`)
 create_material_model = lame_parameters
+
+
+def constitutive_stress(strain, lam, mu):
+    """Hooke's law sigma = lambda tr(eps) I + 2 mu eps on [...,3,3]
+    tensors (NumPy arrays or tensors; reference:
+    FiniteElementAnalysis.jl:126-129)."""
+    tr = strain[..., 0, 0] + strain[..., 1, 1] + strain[..., 2, 2]
+    if isinstance(strain, np.ndarray):
+        eye = np.eye(3, dtype=strain.dtype)
+    else:
+        import torch
+        eye = torch.eye(3, dtype=strain.dtype, device=strain.device)
+    return lam * tr[..., None, None] * eye + 2.0 * mu * strain
 
 
 def simp_youngs_modulus(density, E0, Emin, p):
@@ -65,3 +80,13 @@ def create_simp_material_model(E0: float, nu: float, Emin: float = 1e-9,
     """API-parity constructor (reference export
     `create_simp_material_model`, FiniteElementAnalysis.jl:616-634)."""
     return SIMPMaterial(E0=E0, nu=nu, Emin=Emin, p=p)
+
+
+def elasticity_matrix(lam: float, mu: float, dtype=np.float64) -> np.ndarray:
+    """6x6 isotropic D in Voigt order [xx, yy, zz, xy, yz, xz] with
+    engineering shear strains."""
+    D = np.zeros((6, 6), dtype=dtype)
+    D[:3, :3] = lam
+    D[0, 0] = D[1, 1] = D[2, 2] = lam + 2 * mu
+    D[3, 3] = D[4, 4] = D[5, 5] = mu
+    return D

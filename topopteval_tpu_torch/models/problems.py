@@ -2,9 +2,8 @@
 ``topopteval_tpu.models.problems``).
 
 Each constructor reproduces one of the reference's workflows end-to-end
-(reference: test/runtests.jl:21-89) as a ready-to-solve
-:class:`..api.Problem`.  The two gravity problems of the JAX package need
-the volume loads, which are not ported yet (ROADMAP Queue A item 8).
+(reference: test/runtests.jl:21-89; test/VolumeForces/testVolumeForces.jl)
+as a ready-to-solve :class:`..api.Problem`.
 """
 
 from __future__ import annotations
@@ -17,7 +16,9 @@ import torch
 from ..api import (Problem, apply_fixed_boundary, apply_force,
                    assemble_stiffness_matrix, assemble_stiffness_matrix_simp,
                    extract_cell_density, import_mesh, setup_problem)
-from ..fem.bc import nodes_at_plane
+from ..fem.bc import nodes_at_plane, select_nodes_by_plane
+from ..fem.loads import apply_gravity
+from ..grid import generate_grid_hex
 from ..materials import create_material_model, create_simp_material_model
 
 
@@ -60,3 +61,38 @@ def simp_beam(mesh_path: str, E0: float = 1.0, nu: float = 0.3,
     material = create_simp_material_model(E0, nu, Emin, p)
     assemble_stiffness_matrix_simp(problem, material, density)
     return _clamp_and_load(problem, axis, tip_force)
+
+
+def cantilever_under_gravity(nx: int = 40, ny: int = 8, nz: int = 8,
+                             L: float = 10.0, w: float = 1.0,
+                             h: float = 1.0, E: float = 200e9,
+                             nu: float = 0.3, rho: float = 7850.0,
+                             g: float = 9.81,
+                             dtype: torch.dtype = torch.float32,
+                             device="cuda") -> Problem:
+    """Self-weight cantilever with an Euler-Bernoulli analytical solution
+    (reference: testVolumeForces.jl:6-60)."""
+    mesh = generate_grid_hex(nx, ny, nz, (0, 0, 0), (L, w, h))
+    problem = setup_problem(mesh, dtype=dtype, device=device)
+    assemble_stiffness_matrix(problem, *create_material_model(E, nu))
+    apply_fixed_boundary(
+        problem, select_nodes_by_plane(mesh, [0.0, 0, 0], [1.0, 0, 0],
+                                       1e-9))
+    apply_gravity(problem, rho, g, [0.0, 0.0, -1.0])
+    return problem
+
+
+def cube_under_gravity(n: int = 8, E: float = 200e9, nu: float = 0.3,
+                       rho: float = 7850.0, g: float = 9.81,
+                       dtype: torch.dtype = torch.float32,
+                       device="cuda") -> Problem:
+    """Unit cube on a fixed floor under gravity (reference:
+    testVolumeForces.jl:65-102; sigma_zz(bottom) = -rho g h)."""
+    mesh = generate_grid_hex(n, n, n)
+    problem = setup_problem(mesh, dtype=dtype, device=device)
+    assemble_stiffness_matrix(problem, *create_material_model(E, nu))
+    apply_fixed_boundary(
+        problem, select_nodes_by_plane(mesh, [0.0, 0, 0], [0.0, 0, 1.0],
+                                       1e-9))
+    apply_gravity(problem, rho, g)
+    return problem

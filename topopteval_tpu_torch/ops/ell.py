@@ -27,6 +27,12 @@ tensor each call launches its hand-written kernel of ``csrc/ell_apply.cu``
 or raises; it never falls back.  On a CPU tensor it runs the plain PyTorch
 version (``*_reference``), which is also what the kernels are held
 against on the card.
+
+``bell_ablate`` is the kernel of the block-ELL ablation probe
+(tools/ell_ablate.py, the counterpart of tools/tpu_bell_ablate.py): B9a's
+matvec split into a gather stage and a value stage that meet in a
+shared-memory scratch, in five modes that leave out one part each
+(``ABLATE_MODES``; csrc/ell_ablate.cu says what each computes).
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ import torch
 from .. import _build
 
 #: kernel launches per wrapper; only a launch of the CUDA kernel counts
-LAUNCHES = {"bell_window": 0, "sell_window": 0}
+LAUNCHES = {"bell_window": 0, "sell_window": 0, "bell_ablate": 0}
+#: the ablation probe's modes, in the order of csrc/ell_ablate.cu's Mode
+ABLATE_MODES = ("full", "noskip", "nogather", "nofinal", "empty")
 
 LANES = 128
 GROUP = 8          # pack_ell_rows pads S to a multiple of this
@@ -142,7 +150,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def _library() -> ctypes.CDLL:
     """The built ``csrc/ell_apply.cu`` with its C signatures declared."""
     lib = _build.load("ell_apply")
-    for name in LAUNCHES:
+    for name in ("bell_window", "sell_window"):
         for suffix in _SUFFIX.values():
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -308,3 +316,111 @@ def sell_matvec_window_reference(cols2, w2, wblk, gbounds, u, S: int,
                   n_rows)
     return _window_reference("sell_window", cols2, w2, wblk, u, S, kc,
                              node_major, rows)
+
+
+# ---------------------------------------------------------------------------
+# The ablation probe's kernel (csrc/ell_ablate.cu)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _ablate_library() -> ctypes.CDLL:
+    """The built ``csrc/ell_ablate.cu`` with its C signatures declared."""
+    lib = _build.load("ell_ablate")
+    for suffix in _SUFFIX.values():
+        fn = getattr(lib, f"ell_ablate_{suffix}")
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 5 + [ctypes.c_longlong,
+                                               ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.ell_ablate_scratch_limit.restype = ctypes.c_int
+    lib.ell_ablate_error_string.argtypes = [ctypes.c_int]
+    lib.ell_ablate_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_ablate(mode: str, cols2, vals2, wblk, u, S: int, kc: int) -> None:
+    if mode not in ABLATE_MODES:
+        raise ValueError(f"bell_ablate: mode must be one of {ABLATE_MODES}, "
+                         f"got {mode!r}")
+    _check("bell_window", cols2, vals2, wblk, u, S, kc, False, None)
+    if S < 3:
+        raise ValueError(f"bell_ablate: S={S} < 3 (nofinal writes slots "
+                         "0-2)")
+    if u.stride(1) != 1:
+        raise ValueError("bell_ablate: u must be [3, n] with unit node "
+                         "stride")
+
+
+def bell_ablate(mode: str, cols2: torch.Tensor, vals2: torch.Tensor,
+                wblk: torch.Tensor, gbounds: torch.Tensor, u: torch.Tensor,
+                S: int, kc: int) -> torch.Tensor:
+    """One mode of the ablation probe on the ``pack_ell_rows`` layout: u
+    [3, n_cols] -> out [3, Nt*128] (pad rows included).  ``full`` and
+    ``noskip`` compute :func:`bell_matvec_window`; ``gbounds`` is accepted
+    for the TPU tool's signature and not read."""
+    del gbounds
+    _check_ablate(mode, cols2, vals2, wblk, u, S, kc)
+    if u.device.type == "cpu":
+        return _ablate_reference(mode, cols2, vals2, wblk, u, S, kc)
+    if u.device.type != "cuda":
+        raise ValueError(f"bell_ablate: no kernel for device {u.device}")
+    lib = _ablate_library()
+    scratch = 3 * S * LANES * u.element_size()
+    limit = lib.ell_ablate_scratch_limit()
+    if scratch > limit:
+        raise ValueError(f"bell_ablate: the gather scratch of S={S} slots "
+                         f"takes {scratch} bytes of shared memory a block "
+                         f"({u.dtype}); this card allows {limit}")
+    Nt = wblk.shape[0]
+    rows = Nt * LANES
+    out = torch.empty((3, rows), dtype=u.dtype, device=u.device)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = getattr(lib, f"ell_ablate_{_SUFFIX[u.dtype]}")(
+        ABLATE_MODES.index(mode), cols2.data_ptr(), vals2.data_ptr(),
+        wblk.data_ptr(), u.data_ptr(), out.data_ptr(), S, kc, Nt, rows,
+        u.shape[1], u.stride(0), stream)
+    if err != 0:
+        msg = lib.ell_ablate_error_string(err).decode()
+        raise RuntimeError(f"bell_ablate kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+    if rows:
+        LAUNCHES["bell_ablate"] += 1
+    return out
+
+
+def bell_ablate_reference(mode: str, cols2, vals2, wblk, gbounds, u,
+                          S: int, kc: int) -> torch.Tensor:
+    """Plain version of :func:`bell_ablate` on any device."""
+    del gbounds
+    _check_ablate(mode, cols2, vals2, wblk, u, S, kc)
+    return _ablate_reference(mode, cols2, vals2, wblk, u, S, kc)
+
+
+def _ablate_reference(mode: str, cols2, vals2, wblk, u, S: int,
+                      kc: int) -> torch.Tensor:
+    """Each mode's formula: the masked gather of ``full`` (``noskip``
+    gathers the same values), the column's chunk at the row's own lane
+    (``nogather``) or zeros (``empty``); then slots 0-2 of component 0
+    (``nofinal``) or the value stage."""
+    Nt = wblk.shape[0]
+    n_cols = u.shape[1]
+    cols = cols2.reshape(Nt, S, LANES).long()
+    lo = wblk.long()[:, None, None] * LANES
+    inb = (cols >= lo) & (cols < lo + kc * LANES) & (cols < n_cols)
+    if mode == "nogather":
+        lane = torch.arange(LANES, device=u.device)
+        cols = cols - cols % LANES + lane
+        inb = inb & (cols < n_cols)
+    if mode == "empty":
+        g = u.new_zeros((3, Nt, S, LANES))
+    else:
+        g = u.index_select(1, torch.where(inb, cols, 0).reshape(-1))
+        g = torch.where(inb, g.reshape(3, Nt, S, LANES), u.new_zeros(()))
+    if mode == "nofinal":
+        return g[0, :, :3].permute(1, 0, 2).reshape(3, Nt * LANES) \
+            .contiguous()
+    v = vals2.reshape(Nt, 9, S, LANES)
+    out = [(v[:, 3 * a] * g[0] + v[:, 3 * a + 1] * g[1]
+            + v[:, 3 * a + 2] * g[2]).sum(dim=1) for a in range(3)]
+    return torch.stack(out).reshape(3, Nt * LANES)
