@@ -6,7 +6,8 @@
 Run from the repository root.  Phases, each printed as one line (or a
 few) and each failing the script on a failed check:
 
-1. device: the card's name and power limit (nvidia-smi), the kernel build;
+1. device: the card's name and power limit (nvidia-smi), the kernel build
+   (it fails if ptxas reports a spill in any kernel);
 2. kernel parity: every CUDA kernel against its plain PyTorch version on
    the card, in float64 and float32, at the shapes of the real-size run;
 3. the two bundled fixtures through import → setup → assemble → BCs →
@@ -50,7 +51,9 @@ few) and each failing the script on a failed check:
 9. quadratic elements and the stored-Ke operator: the tet10 apply (B7)
    and the Ke-batch kernels (B6 tet4, B8 hex8 and tet10) against their
    plain versions at the scale-8 tet10 beam (153,600 elements), the
-   scale-16 tet4 beam and the SIMP Hex8 fixture; the scale-4 tet10 beam
+   scale-16 tet4 beam and the SIMP Hex8 fixture, B7 also on the Tet4
+   fixture at order 2 (small tiles) and a ragged cut of the beam; the
+   scale-4 tet10 beam
    through ``solve_system(p)`` with no config (fp32 block-Jacobi CG under
    fp64 refinement) and the scale-2 one in fp64, against
    data/oracle_energies.json; the Tet4 fixture at
@@ -72,8 +75,9 @@ few) and each failing the script on a failed check:
    through float64 refinement against data/oracle_energies.json, with the
    build seconds by phase; the kernels at that route's level-1 operator
    and transfers; their times beside their bound, the plain version, one
-   cuSPARSE call and B4/B5 on the same matrix; and where one MG-PCG
-   iteration of that route spends its time;
+   cuSPARSE call and B4/B5 on the same matrix (each also held to its own
+   plain version there: B4 at the level-1 operator's 58 blocks a row);
+   and where one MG-PCG iteration of that route spends its time;
 11. T1, the Ke-formulation probe (tools/ke_probe.py, counterpart of
    tools/tpu_ke_probe.py) run as a user runs it at the scale-16 beam in
    float32 and float64, then its two kernels (``tet4_ke_cse``,
@@ -104,6 +108,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -142,12 +147,18 @@ from topopteval_tpu_torch.tools._timing import (  # noqa: E402
 #    vol*esc 1; the 3 scaled columns s_i = w sigma e_i / h_i 9; the nodal
 #    forces -s_1, s_1 - s_2, s_2 - s_3, s_3 6; 12 adds onto the corners.
 #    62 per tet, 372 per cell.
-#  tet10 apply, 4-point rule: per point the reference gradients of the 3
-#    coordinate and the 3 displacement fields over the 10 nodes, 9 entries
-#    of 10 products and 9 adds each, 171 twice (342); cofactors 27, det 5,
-#    1/det 1, w/det 1, lam w/det and mu w/det 2, H adj(J) 45, sigma 16,
-#    P = sigma adj(J)^T 45 (142); P onto the 10 nodes, 15 each (150).
-#    4 x 634 plus 3 x 30 adds over the points: 2626.
+#  tet10 apply, 4-point rule at barycentric (b, a, a, a) and its
+#    permutations: the tet10 derivatives are linear in the barycentric
+#    coordinates, so the reference gradients of the coordinate and the
+#    displacement fields are a part common to the 4 points plus one
+#    neighbour difference per point.  Per field the common part, 3
+#    columns of 3 components, 7 each (63, 126 for both); per point the
+#    gradients of both fields, 27 each (54), cofactors 27, det 5,
+#    s = w/det 1, tr, lam s tr, mu s, 2 mu s 6, M = H adj(J) 45,
+#    S = sigma(M) s 12, P = S adj(J)^T 45, the corner-0 column of P 9, the
+#    node sums' 12 products (216 a point, 864); 3 x 12 adds of the sums
+#    over the points, 18 adds of the mid-edge pairs, and the 30 nodal
+#    forces from the sums, 78.  Total 1122.
 #  Ke batches: a_k = dN_k adj(J) unscaled, s = w/det, so that
 #    Ke = sum_q s (lam a_ia a_jb + mu a_ib a_ja + mu d_ab a_i.a_j); only
 #    the upper triangle (3k(3k+1)/2 entries) is computed, 5 each, plus
@@ -166,7 +177,7 @@ from topopteval_tpu_torch.tools._timing import (  # noqa: E402
 #    Total 14,103.
 FLOPS_PER_ELEMENT = {"tet4_apply": 166, "hex8_apply": 2256,
                      "stencil_plane": 372, "stencil_window": 372,
-                     "tet10_apply": 2626, "tet4_ke": 531,
+                     "tet10_apply": 1122, "tet4_ke": 531,
                      "hex8_ke": 18264, "tet10_ke": 14103}
 REPLACES = {
     "tet4_apply": "topopteval_tpu/ops/pallas_kernels.py:137",
@@ -516,6 +527,25 @@ def galerkin_phase(env):
                             / want_cm.abs().max())
             b_ms, b_by, padded_ms = bound(name, args, kw, len(rows_t))
             out_bytes = nbytes(want)
+            # the port's other kernel on the same matrix, held to its own
+            # plain version (B4 at the Galerkin level 1: 72 blocks a row)
+            o_out = other(u_cm, A)
+            env.check(o_out.shape == (3, A.n_rows)
+                      and bool(torch.isfinite(o_out).all()),
+                      f"{lib_name} at {label}: bad output")
+            o_ref = (bo.bell_matvec_reference(u_cm, A)
+                     if name == "bell_window"
+                     else bo.sell_matvec_reference(u_cm, A))
+            o_err = float((o_out - o_ref).abs().max())
+            o_tol = TOLERANCE[str(u.dtype).split(".")[1]]
+            print(f"[parity] {lib_name} {label} rows={A.n_rows} nnz={A.nnz} "
+                  f"max_abs_err={o_err:.3e} rel="
+                  f"{o_err / float(o_ref.abs().max()):.3e} (tol {o_tol:.0e})",
+                  flush=True)
+            env.check(o_err <= o_tol * float(o_ref.abs().max()),
+                      f"{lib_name} at {label} disagrees with its plain "
+                      "version")
+            del o_out, o_ref
 
             def make_kern(j):
                 c2, v2, wb, uj = copies(j, args[0], args[1], args[2], u)
@@ -1092,6 +1122,10 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"[build] {name}: {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)
+            check(spills is None or spills.groups() == ("0", "0"),
+                  f"{name}.cu: ptxas reports a spill: {line.strip()}")
 
     # -- 2. kernel parity at the real-size shapes ----------------------------
     beam = tt.generate_grid_tet(100, 32, 8, (0, 0, 0), (60, 20, 4))
@@ -2034,6 +2068,38 @@ def main() -> int:
             check(err <= TOLERANCE[dname] * scale,
                   f"{name} {dname} disagrees with its plain version")
             del out_k, out_p, args
+    # B7 on a small batch, the Tet4 fixture at order 2 (8,121 elements,
+    # tiles of 32), in float64: its sliver elements leave the float32
+    # plain version itself uncertain at ~2e-5 of the largest force (the
+    # earlier four-thread kernel was 2.2e-5 from it there); and a ragged
+    # cut of the beam (tiles of 64) in both types
+    fix2 = tt.import_mesh(os.path.join(
+        data, "beam_linear_volume_mesh.vtu")).to_quadratic()
+    for label, m, C, dtypes in (
+            ("fixture_order2", fix2, fix2.n_cells, (torch.float64,)),
+            ("beam8_ragged", quad8, 17_003, (torch.float64, torch.float32))):
+        u_m = np.random.default_rng(11).standard_normal(m.n_dofs)
+        for dtype in dtypes:
+            dname = str(dtype).split(".")[1]
+            args = (torch.as_tensor(m.coords, dtype=dtype, device=dev),
+                    torch.as_tensor(m.conn[:C], device=dev),
+                    torch.as_tensor(u_m, dtype=dtype, device=dev),
+                    torch.full((C,), lam0, dtype=dtype, device=dev),
+                    torch.full((C,), mu0, dtype=dtype, device=dev))
+            out_k = ek.tet10_apply(*args)
+            torch.cuda.synchronize()
+            out_p = ek.tet10_apply_reference(*args)
+            err = float((out_k - out_p).abs().max())
+            scale = float(out_p.abs().max())
+            print(f"[parity] tet10_apply {label} {dname} C={C} "
+                  f"tile={ek.tet10_tiles(args[1]).tile} max_abs_err={err:.3e}"
+                  f" rel={err / scale:.3e} (tol {TOLERANCE[dname]:.0e})",
+                  flush=True)
+            check(err <= TOLERANCE[dname] * scale,
+                  f"tet10_apply {label} {dname} disagrees with its plain "
+                  "version")
+            del out_k, out_p, args
+    del fix2
     torch.cuda.empty_cache()
 
     # 9b. the scale-4 tet10 beam through solve_system(p), no config: auto
@@ -2194,7 +2260,7 @@ def main() -> int:
             C, k = conn.shape
             item = coords.element_size()
             etype, order = etype_of[name]
-            table = (0 if etype == "tet4" else
+            table = (0 if etype == "tet4" or name == "tet10_apply" else
                      ek.rule_table(etype, dtype, dev).numel() * item)
             out_vals = C * k * 3 if name == "tet10_apply" else C * 9 * k * k
             nbytes = (coords.numel() * item + conn.numel() * 4

@@ -711,3 +711,131 @@ def test_ell_ablate_large_scratch(cuda):
             torch.as_tensor(big["vals2"], device=cuda),
             torch.as_tensor(big["wblk"], device=cuda), None, u[:, :128],
             80, big["kc"])
+
+
+# ---------------------------------------------------------------------------
+# the Hopper designs of B7 (tiles of distinct nodes, two cp.async stages)
+# and B4 (sub-warps per row over staged value runs)
+# ---------------------------------------------------------------------------
+
+
+def _tet10_case(case, dtype, device):
+    """tet10 inputs: curved elements with C = 1, C under one tile, a
+    ragged last tile (133 = 4 x 32 + 5) and the scale-2 beam (2,400
+    elements); the scale-8 beam (153,600: tiles of 64, several per block)
+    with straight edges, since among that many randomly curved elements
+    some come out nearly singular, where the float32 plain version itself
+    lies 2e-3 of the largest force from the float64 one."""
+    if case in ("beam2", "beam8"):
+        s = 2 if case == "beam2" else 8
+        rng = np.random.default_rng(s)
+        mesh = tt.generate_grid_tet(25 * s // 2, 4 * s, s, (0, 0, 0),
+                                    (60.0, 20.0, 4.0)).to_quadratic()
+        h = 60.0 / (25 * s // 2)
+        coords = mesh.coords.copy()
+        if case == "beam2":
+            mid = np.unique(mesh.conn[:, 4:])      # mid-edge nodes: curved
+            coords[mid] += rng.uniform(-0.1 * h, 0.1 * h, (mid.size, 3))
+        C = mesh.n_cells
+
+        def t(a, dt=dtype):
+            return torch.as_tensor(a, dtype=dt, device=device)
+
+        return (t(coords), t(mesh.conn, torch.int32),
+                t(rng.standard_normal(mesh.n_dofs)),
+                t(rng.uniform(0.1, 2.0, C)), t(rng.uniform(0.1, 2.0, C)))
+    coords, conn, u, lam, mu = _curved_inputs("tet10", dtype, device, nx=6,
+                                              ny=3, nz=2)
+    return (coords, conn[:case].contiguous(), u, lam[:case].contiguous(),
+            mu[:case].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", [1, 20, 133, "beam2", "beam8"])
+def test_tet10_apply_tiles_match_plain_version(cuda, dtype, case):
+    args = _tet10_case(case, dtype, cuda)
+    before = ek.LAUNCHES["tet10_apply"]
+    out = ek.tet10_apply(*args)
+    again = ek.tet10_apply(*args)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES["tet10_apply"] == before + 2
+    ref = ek.tet10_apply_reference(*args)
+    assert out.shape == ref.shape == (args[1].shape[0], 10, 3)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+    assert torch.equal(out, again)          # bit-identical launch to launch
+
+
+def test_tet10_apply_follows_a_conn_written_in_place(cuda):
+    """The kernel reads per-tile node lists built from conn once; a conn
+    written in place is seen by the next launch."""
+    coords, conn, u, lam, mu = _curved_inputs("tet10", torch.float64, cuda)
+    ek.tet10_apply(coords, conn, u, lam, mu)
+    conn[3] = conn[3].flip(0)
+    out = ek.tet10_apply(coords, conn, u, lam, mu)
+    ref = ek.tet10_apply_reference(coords, conn, u, lam, mu)
+    assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+def _bell_shape(shape, device, vals_dtype, seed=0):
+    """Row-compressed 3x3-block matrices: every fifth row empty, rows of
+    700 blocks (more than a chunk of 512), a coarse level's 72 blocks a
+    row, and 14 a row over a row count that no tile divides."""
+    from topopteval_tpu_torch.ops import bell
+    n, per_row, n_cols = {"empty_rows": (1000, 10, 900),
+                          "long_rows": (45, 700, 2000),
+                          "coarse72": (700, 72, 700),
+                          "ragged": (3001, 14, 3001)}[shape]
+    rng = np.random.default_rng(seed)
+    counts = np.full(n, per_row)
+    if shape == "empty_rows":
+        counts[::5] = 0
+    rows = np.repeat(np.arange(n), counts)
+    # a run of distinct columns per row, from a jittered diagonal start
+    first = np.arange(n) * n_cols // n + rng.integers(0, 50, n)
+    cols = (np.repeat(first, counts) + np.arange(rows.size)
+            - np.repeat(np.cumsum(counts) - counts, counts)) % n_cols
+    A = bell.pack_csr(rows, cols, rng.standard_normal((rows.size, 3, 3)), n,
+                      n_cols, vals_dtype, device)
+    return A, rng
+
+
+@pytest.mark.parametrize("shape", ["empty_rows", "long_rows", "coarse72",
+                                   "ragged"])
+@pytest.mark.parametrize("case", ["f32", "f32_lo", "f32_bf16", "f64"])
+def test_bell_matvec_subwarps_match_plain_version(cuda, case, shape):
+    from topopteval_tpu_torch.ops import bell
+    vec = torch.float64 if case == "f64" else torch.float32
+    vals = {"f32_bf16": torch.bfloat16, "f64": torch.float64}.get(
+        case, torch.float32)
+    A, rng = _bell_shape(shape, cuda, vals)
+    u = torch.as_tensor(rng.standard_normal((3, A.n_cols)), dtype=vec,
+                        device=cuda)
+    lo = (A.vals * 1e-7).contiguous() if case == "f32_lo" else None
+    out = bell.bell_matvec(u, A, lo)
+    again = bell.bell_matvec(u, A, lo)
+    torch.cuda.synchronize()
+    ref = bell.bell_matvec_reference(u, A, lo)
+    empty = A.indptr[1:] == A.indptr[:-1]
+    assert bool((out[:, empty] == 0).all())
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL[vec] * scale
+    assert torch.equal(out, again)          # bit-identical launch to launch
+
+
+def test_redesigned_wrappers_refuse_what_their_kernels_do_not_take(cuda):
+    from topopteval_tpu_torch.ops import bell
+    A, rng = _bell_shape("ragged", cuda, torch.bfloat16)
+    u = torch.as_tensor(rng.standard_normal((3, A.n_cols)),
+                        dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):             # no lo plane with bf16 values
+        bell.bell_matvec(u, A, A.vals)
+    with pytest.raises(TypeError):             # bf16 vectors
+        bell.bell_matvec(u.bfloat16(), A)
+    with pytest.raises(ValueError):            # values on the CPU
+        bell.bell_matvec(u, A.with_vals(A.vals.cpu()))
+    coords, conn, uu, lam, mu = _curved_inputs("tet10", torch.float32, cuda)
+    with pytest.raises(ValueError):            # conn on the CPU
+        ek.tet10_apply(coords, conn.cpu(), uu, lam, mu)
+    with pytest.raises(TypeError):             # mixed float types
+        ek.tet10_apply(coords, conn, uu, lam.double(), mu)

@@ -46,28 +46,33 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as fh:
+def _target(name: str, path: Optional[str] = None) -> str:
+    with open(path or os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as fh:
         digest = hashlib.sha256(fh.read()
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+def build(names: Optional[Iterable[str]] = None,
+          paths: Optional[Dict[str, str]] = None) -> Dict[str, float]:
     """Compile ``names`` (default: every source) that are not built yet,
-    all nvcc processes at once.  Returns the seconds each build took (0.0
-    for a library that was already there); raises if any build fails."""
-    names = list(sources() if names is None else names)
+    all nvcc processes at once; ``paths`` maps a name to a source outside
+    ``csrc/`` (another tree's kernels, for an A/B timing).  Returns the
+    seconds each build took (0.0 for a library that was already there);
+    raises if any build fails."""
+    paths = dict(paths or {})
+    names = list(sources() if names is None and not paths else names or [])
+    names += [n for n in paths if n not in names]
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        target = _target(name)
+        src = paths.get(name) or os.path.join(CSRC_DIR, f"{name}.cu")
+        target = _target(name, src)
         if os.path.exists(target):
             continue
         tmp = f"{target}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, target)
@@ -78,8 +83,12 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         seconds[name] = time.perf_counter() - t0
         PTXAS_REPORT[name] = (out + err).strip()
         if proc.returncode != 0:
+            # the -v report buries the errors: put their lines first
+            lines = (out + err).splitlines()
+            errors = [ln for ln in lines if "error" in ln.lower()]
             failures.append(f"{name}.cu (exit {proc.returncode}):\n"
-                            f"{(out + err)[-4000:]}")
+                            + "\n".join(errors[:40]) + "\n"
+                            + "\n".join(lines)[-2000:])
             continue
         os.replace(tmp, target)
     if failures:
@@ -87,13 +96,14 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it if needed."""
+def load(name: str, path: Optional[str] = None) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` (or of the source ``path``,
+    under the name ``name``), building it if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        target = _target(name)
+        target = _target(name, path)
         if not os.path.exists(target):
-            build([name])
+            build([name], {name: path} if path else None)
         lib = ctypes.CDLL(target)
         _LOADED[name] = lib
     return lib

@@ -29,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import numpy as np
@@ -39,6 +40,12 @@ from ..mesh import resolve_device
 
 #: kernel launches per wrapper; only a launch of the CUDA kernel counts
 LAUNCHES = {"bell_matvec": 0, "sell_matvec": 0}
+
+#: threads of a bell_matvec block (csrc/bell_apply.cu BELL_THREADS): a
+#: block takes BELL_THREADS / lanes consecutive rows
+BELL_THREADS = 256
+#: blocks a bell_matvec lane sums in sequence, aimed at on average
+LANE_BLOCKS = 4
 
 #: row padding of the component-major vectors (the JAX package's lane
 #: width, kept so both packages' [3, Np] arrays have one shape)
@@ -101,6 +108,17 @@ class BlockCSR:
             torch.arange(self.n_rows, device=self.indptr.device), counts)
 
 
+def bell_lanes(n_rows: int, nnz: int) -> int:
+    """Lanes that sum one row in ``bell_matvec``'s kernel: the power of two
+    nearest to (blocks per row) / LANE_BLOCKS, from 2 to 32 (4 at 14.4
+    blocks a row, 16 at 72).  Lane l of row r sums blocks indptr[r] + l,
+    + l + lanes, ... in order; a xor butterfly over the lanes adds the
+    partial sums, so the order depends on the matrix only."""
+    avg = nnz / max(n_rows, 1)
+    lanes = 2 ** round(math.log2(max(avg / LANE_BLOCKS, 1.0)))
+    return min(max(lanes, 2), 32)
+
+
 def csr_arrays(rows, cols, data, n_rows: int):
     """Sorted-triplet packer: (rows, cols, data) -> (indptr int64 [n_rows+1],
     cols int32 [nnz], data [nnz, ...]) ordered by (row, col).  Duplicates
@@ -144,7 +162,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("bell_apply")
     for suffix in set(_SUFFIX.values()):
         fn = getattr(lib, f"bell_matvec_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"sell_matvec_{suffix}")
@@ -191,13 +209,14 @@ def _check(name: str, u_cm: torch.Tensor, A: BlockCSR, block: bool,
     return suffix
 
 
-def _launch(name: str, suffix: str, args, A: BlockCSR,
-            u_cm: torch.Tensor) -> torch.Tensor:
+def _launch(name: str, suffix: str, args, A: BlockCSR, u_cm: torch.Tensor,
+            extra=()) -> torch.Tensor:
     out = torch.empty((3, A.n_rows), dtype=u_cm.dtype, device=u_cm.device)
     lib = _library()
     stream = torch.cuda.current_stream(u_cm.device).cuda_stream
     err = getattr(lib, f"{name}_{suffix}")(
-        *args, u_cm.data_ptr(), out.data_ptr(), A.n_rows, A.n_cols, stream)
+        *args, u_cm.data_ptr(), out.data_ptr(), A.n_rows, A.n_cols, *extra,
+        stream)
     if err != 0:
         msg = lib.bell_apply_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
@@ -218,7 +237,8 @@ def bell_matvec(u_cm: torch.Tensor, A: BlockCSR,
         raise ValueError(f"bell_matvec: no kernel for device {u_cm.device}")
     args = (A.indptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
             None if vals_lo is None else vals_lo.data_ptr())
-    return _launch("bell_matvec", suffix, args, A, u_cm)
+    return _launch("bell_matvec", suffix, args, A, u_cm,
+                   (bell_lanes(A.n_rows, A.nnz),))
 
 
 def sell_matvec(u_cm: torch.Tensor, T: BlockCSR) -> torch.Tensor:
