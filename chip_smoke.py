@@ -9,7 +9,10 @@ few) and each failing the script on a failed check:
 1. device: the card's name and power limit (nvidia-smi), the kernel build
    (it fails if ptxas reports a spill in any kernel);
 2. kernel parity: every CUDA kernel against its plain PyTorch version on
-   the card, in float64 and float32, at the shapes of the real-size run;
+   the card, in float64 and float32, at the shapes of the real-size run:
+   B1 (tet4 apply) at the scale-8 beam, the Tet4 fixture and the scale-16
+   beam, B2 (hex8 apply) at the 25,600-hex box and the SIMP Hex8 fixture,
+   each with the reuse of its per-tile node lists;
 3. the two bundled fixtures through import → setup → assemble → BCs →
    forced block-Jacobi CG → export, against the port's fp64 host direct
    oracle (SIMP Hex8 beam in float32, Tet4 cantilever in float64);
@@ -17,13 +20,14 @@ few) and each failing the script on a failed check:
    the default ``solve_system`` (auto picks CG above 50k DOFs), in
    float64 against data/oracle_energies.json and in float32 through the
    refinement route;
-5. kernel times (CUDA events over a replayed CUDA graph: device time)
-   beside their bound, the plain version (eager) and a ``torch.bmm`` of a
-   precomputed Ke batch as library yardstick; ``eager_ms`` is the kernel
-   called from Python, wrapper checks included;
+5. kernel times at the shapes of phase 2 (CUDA events over a replayed
+   CUDA graph: device time) beside their bound, the plain version (eager)
+   and a ``torch.bmm`` of a precomputed Ke batch as library yardstick;
+   ``eager_ms`` is the kernel called from Python, wrapper checks included;
 6. where one CG iteration on the real-size beam spends its time: the
-   parts timed alone, the host wall time per iteration and the device's
-   busy share under ``torch.profiler``;
+   parts timed alone (B1 and the ``RowScatterPlan`` sum of its forces
+   among them), the host wall time per iteration and the device's busy
+   share under ``torch.profiler``;
 7. the structured-multigrid route (``preconditioner="multigrid"``) on
    generated beams: both stencil kernels against their plain version at
    three shapes, the float32 energy of a converged solution through the
@@ -64,7 +68,7 @@ few) and each failing the script on a failed check:
    beams and the SIMP Hex8 fixture (against otf) and a ``with_material``
    swap; a hex20 box against the direct solve; and the three kernels'
    times beside their bound, the plain version and a ``torch.bmm``
-   yardstick;
+   yardstick (B7 also at the Tet4 fixture at order 2);
 10. the Galerkin voxel multigrid (``TOPOPT_MG=galerkin``) and its
    scan-window ELL kernels, B9a ``bell_window`` and B9b ``sell_window``:
    both against their plain versions on random banded triplets with empty
@@ -77,7 +81,8 @@ few) and each failing the script on a failed check:
    and transfers; their times beside their bound, the plain version, one
    cuSPARSE call and B4/B5 on the same matrix (each also held to its own
    plain version there: B4 at the level-1 operator's 58 blocks a row);
-   and where one MG-PCG iteration of that route spends its time;
+   and where one MG-PCG iteration of that route spends its time, B1 and
+   the ``RowScatterPlan`` sum on its fine level among the parts;
 11. T1, the Ke-formulation probe (tools/ke_probe.py, counterpart of
    tools/tpu_ke_probe.py) run as a user runs it at the scale-16 beam in
    float32 and float64, then its two kernels (``tet4_ke_cse``,
@@ -616,8 +621,17 @@ def galerkin_phase(env):
     # the start costs what an iteration costs: one matvec, one V-cycle
     per = {k: v / (iters + 1) for k, v in (*el.LAUNCHES.items(),
                                            *ek.LAUNCHES.items()) if v}
-    parts = {"system_matvec": time_ms(lambda: op_g.matvec(b)),
+    # B1 on the fine level and the RowScatterPlan sum of its forces, the
+    # two halves of the fine matvec (phase 6 prints the same pair at
+    # scale 8)
+    dm = op_g.dmesh
+    f_e = ek.tet4_apply(dm.coords, dm.conn, b, op_g.lam, op_g.mu)
+    parts = {"tet4_apply": time_ms(lambda: ek.tet4_apply(
+                 dm.coords, dm.conn, b, op_g.lam, op_g.mu)),
+             "scatter": time_ms(lambda: op_g.plan.scatter_add(f_e)),
+             "system_matvec": time_ms(lambda: op_g.matvec(b)),
              "vcycle": time_ms(lambda: M_g.apply(b), reps=11, inner=2)}
+    del f_e
     device_ms, top, n_launched = env.profile(
         lambda: cg(op_g, b, M=M_g, tol=0.0, maxiter=iters), iters)
     busy = (f"{device_ms / wall_ms:.3f}" if device_ms > 0
@@ -1128,49 +1142,83 @@ def main() -> int:
                   f"{name}.cu: ptxas reports a spill: {line.strip()}")
 
     # -- 2. kernel parity at the real-size shapes ----------------------------
+    # B1 at the Tet4 fixture (gmsh order), the scale-8 beam and the scale-16
+    # beam (1,228,800 tets, the Galerkin route's fine level); B2 at the
+    # SIMP Hex8 fixture and the 25,600-hex box with SIMP lam, mu.  The
+    # first shape of each is the one the kernels line reports unsuffixed.
     beam = tt.generate_grid_tet(100, 32, 8, (0, 0, 0), (60, 20, 4))
+    beam16 = tt.generate_grid_tet(200, 64, 16, (0, 0, 0), BEAM_BOX)
     box = tt.generate_grid_hex(100, 32, 8, (0, 0, 0), (60, 20, 4))
     lam0, mu0 = tt.lame_parameters(1.0, 0.3)
     simp_material = tt.create_simp_material_model(1.0, 0.3, 1e-8, 3.0)
     box_lam, box_mu = simp_material.lame(
         tt.models.vfrac04_density_for(box))     # per-element SIMP values
-    shapes = {"tet4_apply": (beam, np.full(beam.n_cells, lam0),
-                             np.full(beam.n_cells, mu0)),
-              "hex8_apply": (box, box_lam, box_mu)}
-    u_np = {name: np.random.default_rng(0).standard_normal(m.n_dofs)
-            for name, (m, _, _) in shapes.items()}
+    data = os.path.join(repo, "data")
+    simp_path = os.path.join(data, "beam_vfrac_04_Raw.vtu")
+    simp_mesh = tt.import_mesh(simp_path)
+    tet4_fixture = tt.import_mesh(os.path.join(
+        data, "beam_linear_volume_mesh.vtu"))
 
-    def inputs(name, dtype):
-        m, lam, mu = shapes[name]
+    def uniform(mesh):
+        return (mesh, np.full(mesh.n_cells, lam0), np.full(mesh.n_cells, mu0))
+
+    shapes = {"tet4_apply": {"beam8": uniform(beam),
+                             "fixture": uniform(tet4_fixture),
+                             "beam16": uniform(beam16)},
+              "hex8_apply": {"box": (box, box_lam, box_mu),
+                             "simp_fixture": (simp_mesh, *simp_material.lame(
+                                 tt.extract_cell_density(simp_path)))}}
+    u_np = {(name, label): np.random.default_rng(0).standard_normal(m.n_dofs)
+            for name, per in shapes.items() for label, (m, _, _) in per.items()}
+
+    def inputs(name, dtype, label):
+        m, lam, mu = shapes[name][label]
         return (torch.as_tensor(m.coords, dtype=dtype, device=dev),
                 torch.as_tensor(m.conn, device=dev),
-                torch.as_tensor(u_np[name], dtype=dtype, device=dev),
+                torch.as_tensor(u_np[(name, label)], dtype=dtype, device=dev),
                 torch.as_tensor(lam, dtype=dtype, device=dev),
                 torch.as_tensor(mu, dtype=dtype, device=dev))
 
     errs = {}
     for name, (kern, plain) in kernel_fns.items():
-        for dtype in (torch.float64, torch.float32):
-            dname = str(dtype).split(".")[1]
-            args = inputs(name, dtype)
-            out_k = kern(*args)
-            torch.cuda.synchronize()
-            out_p = plain(*args)
-            check(out_k.shape == out_p.shape, f"{name} shape {out_k.shape}")
-            check(bool(torch.isfinite(out_k).all()), f"{name} not finite")
-            err = float((out_k - out_p).abs().max())
-            scale = float(out_p.abs().max())
-            errs[(name, dname)] = err
-            print(f"[parity] {name} {dname} C={args[1].shape[0]} "
-                  f"max_abs_err={err:.3e} max|plain|={scale:.3e} "
-                  f"rel={err / scale:.3e} (tol {TOLERANCE[dname]:.0e})",
-                  flush=True)
-            check(err <= TOLERANCE[dname] * scale,
-                  f"{name} {dname} disagrees with its plain version")
+        for label in shapes[name]:
+            out_p64 = None
+            for dtype in (torch.float64, torch.float32):
+                dname = str(dtype).split(".")[1]
+                args = inputs(name, dtype, label)
+                out_k = kern(*args)
+                torch.cuda.synchronize()
+                out_p = plain(*args)
+                check(out_k.shape == out_p.shape,
+                      f"{name} shape {out_k.shape}")
+                check(bool(torch.isfinite(out_k).all()), f"{name} not finite")
+                err = float((out_k - out_p).abs().max())
+                scale = float(out_p.abs().max())
+                errs[(name, label, dname)] = err
+                tiles = ek.element_tiles(args[1])
+                # how far the float32 plain version itself lies from float64
+                own = ""
+                if out_p64 is not None:
+                    gap = float((out_p.double() - out_p64).abs().max())
+                    own = (" plain_fp32_vs_fp64="
+                           f"{gap / float(out_p64.abs().max()):.3e}")
+                print(f"[parity] {name} {label} {dname} C={args[1].shape[0]} "
+                      f"tile={tiles.tile} max_nodes={tiles.max_nodes} "
+                      f"reuse={tiles.reuse:.3f} max_abs_err={err:.3e} "
+                      f"max|plain|={scale:.3e} rel={err / scale:.3e} "
+                      f"(tol {TOLERANCE[dname]:.0e}){own}", flush=True)
+                check(err <= TOLERANCE[dname] * scale,
+                      f"{name} {label} {dname} disagrees with its plain "
+                      "version")
+                out_p64 = out_p.double() if dtype == torch.float64 else None
+                del args, out_k, out_p
+            del out_p64
+            torch.cuda.empty_cache()
     print("[parity] errors " + json.dumps(
-        {name: {"max_abs_err_fp64": errs[(name, "float64")],
-                "max_abs_err_fp32": errs[(name, "float32")]}
-         for name in kernel_fns}), flush=True)
+        {f"{name} {label}": {
+            "max_abs_err_fp64": errs[(name, label, "float64")],
+            "max_abs_err_fp32": errs[(name, label, "float32")]}
+         for name in kernel_fns for label in shapes[name]}), flush=True)
 
     def solve(problem, config, kernel):
         """One main-path solve: counts set to 0 just before, read after."""
@@ -1227,7 +1275,6 @@ def main() -> int:
         return rel
 
     # -- 3. bundled fixtures on the device CG route ---------------------------
-    data = os.path.join(repo, "data")
     with tempfile.TemporaryDirectory() as tmp:
         for tag, fname, dtype, kernel, simp_on in (
                 ("simp_hex8_fp32", "beam_vfrac_04_Raw.vtu", torch.float32,
@@ -1279,34 +1326,41 @@ def main() -> int:
         rec = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[name],
                "launches": main_path_launches[name]}
-        for dtype in (torch.float32, torch.float64):
-            dname = str(dtype).split(".")[1]
-            args = inputs(name, dtype)
-            coords, conn, u, lam, mu = args
-            C, k = conn.shape
-            item = coords.element_size()
-            nbytes = (coords.numel() * item + conn.numel() * 4
-                      + u.numel() * item + 2 * C * item + C * k * 3 * item)
-            b_ms, b_by = bound_ms(nbytes, FLOPS_PER_ELEMENT[name] * C, dtype)
-            etype = "tet4" if k == 4 else "hex8"
-            ke = element_stiffness(coords[conn.long()], lam, mu, etype, 2)
-            ue = u.reshape(-1, 3)[conn.long()].reshape(C, 3 * k, 1)
-            vals = {
-                "ms": time_ms(lambda: kern(*args), graph=True),
-                "plain_ms": time_ms(lambda: plain(*args), reps=21, inner=2),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": time_ms(lambda: torch.bmm(ke, ue), graph=True),
-                "max_abs_err": errs[(name, dname)],
-                "eager_ms": time_ms(lambda: kern(*args)),
-            }
-            del ke, ue
-            print(f"[time] {name} {dname} C={C} " + " ".join(
-                f"{key}={val}" for key, val in vals.items()), flush=True)
-            if dtype == torch.float32:
-                rec.update(vals)
-                rec["dtype"] = "float32"
-            else:
-                rec.update({f"{key}_fp64": val for key, val in vals.items()})
+        for i, label in enumerate(shapes[name]):
+            for dtype in (torch.float32, torch.float64):
+                dname = str(dtype).split(".")[1]
+                args = inputs(name, dtype, label)
+                coords, conn, u, lam, mu = args
+                C, k = conn.shape
+                item = coords.element_size()
+                nbytes = (coords.numel() * item + conn.numel() * 4
+                          + u.numel() * item + 2 * C * item
+                          + C * k * 3 * item)
+                b_ms, b_by = bound_ms(nbytes, FLOPS_PER_ELEMENT[name] * C,
+                                      dtype)
+                etype = "tet4" if k == 4 else "hex8"
+                ke = element_stiffness(coords[conn.long()], lam, mu, etype, 2)
+                ue = u.reshape(-1, 3)[conn.long()].reshape(C, 3 * k, 1)
+                vals = {
+                    "ms": time_ms(lambda: kern(*args), graph=True),
+                    "plain_ms": time_ms(lambda: plain(*args), reps=21,
+                                        inner=2),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": time_ms(lambda: torch.bmm(ke, ue),
+                                          graph=True),
+                    "max_abs_err": errs[(name, label, dname)],
+                    "eager_ms": time_ms(lambda: kern(*args)),
+                }
+                del ke, ue, args
+                torch.cuda.empty_cache()
+                print(f"[time] {name} {label} {dname} C={C} " + " ".join(
+                    f"{key}={val}" for key, val in vals.items()), flush=True)
+                sfx = ("" if dtype == torch.float32 else "_fp64") \
+                    + ("" if i == 0 else f"_{label}")
+                rec.update({f"{key}{sfx}": val for key, val in vals.items()})
+                if i == 0 and dtype == torch.float32:
+                    rec["dtype"] = "float32"
+                    rec["shape"] = label
         records.append(rec)
 
     # -- 6. where one CG iteration's time goes (real-size beam) -----------
@@ -1318,7 +1372,7 @@ def main() -> int:
         dm = op.dmesh
         f_e = ek.tet4_apply(dm.coords, dm.conn, b, op.lam, op.mu)
         parts = {
-            "element_apply": time_ms(
+            "tet4_apply": time_ms(
                 lambda: ek.tet4_apply(dm.coords, dm.conn, b, op.lam, op.mu)),
             "scatter": time_ms(lambda: op.plan.scatter_add(f_e)),
             "matvec": time_ms(lambda: op.matvec(b)),
@@ -2009,7 +2063,6 @@ def main() -> int:
     quad8 = quad_beam(8)
     check(quad8.n_cells == 153_600 and quad8.n_dofs == 666_315,
           "the scale-8 tet10 beam is not 153,600 elements / 666,315 DOFs")
-    beam16 = tt.generate_grid_tet(200, 64, 16, (0, 0, 0), BEAM_BOX)
     hex_path = os.path.join(data, "beam_vfrac_04_Raw.vtu")
     hexfix = tt.import_mesh(hex_path)
     hex_density = tt.extract_cell_density(hex_path)
@@ -2092,7 +2145,7 @@ def main() -> int:
             err = float((out_k - out_p).abs().max())
             scale = float(out_p.abs().max())
             print(f"[parity] tet10_apply {label} {dname} C={C} "
-                  f"tile={ek.tet10_tiles(args[1]).tile} max_abs_err={err:.3e}"
+                  f"tile={ek.element_tiles(args[1]).tile} max_abs_err={err:.3e}"
                   f" rel={err / scale:.3e} (tol {TOLERANCE[dname]:.0e})",
                   flush=True)
             check(err <= TOLERANCE[dname] * scale,
@@ -2308,6 +2361,45 @@ def main() -> int:
     for name in quad_fns:
         check(main_path_launches[name] > 0,
               f"{name} was not launched on the main path")
+
+    # 9i. B7 at the Tet4 fixture at order 2 (8,121 elements, tiles of 32):
+    # the kernel beside its bound, the plain version and the torch.bmm of
+    # the stored Ke batch, as at the beam
+    fix2 = tt.import_mesh(os.path.join(
+        data, "beam_linear_volume_mesh.vtu")).to_quadratic()
+    rec = next(r for r in records if r["name"] == "tet10_apply")
+    u_f = np.random.default_rng(11).standard_normal(fix2.n_dofs)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        C = fix2.n_cells
+        args = (torch.as_tensor(fix2.coords, dtype=dtype, device=dev),
+                torch.as_tensor(fix2.conn, device=dev),
+                torch.as_tensor(u_f, dtype=dtype, device=dev),
+                torch.full((C,), lam0, dtype=dtype, device=dev),
+                torch.full((C,), mu0, dtype=dtype, device=dev))
+        item = args[0].element_size()
+        nbytes = (args[0].numel() * item + args[1].numel() * 4
+                  + args[2].numel() * item + 2 * C * item + 30 * C * item)
+        b_ms, b_by = bound_ms(nbytes, FLOPS_PER_ELEMENT["tet10_apply"] * C,
+                              dtype)
+        ke = kk.tet10_ke(args[0], args[1], args[3], args[4])
+        ue = args[2].reshape(-1, 3)[args[1].long()].reshape(C, 30, 1)
+        vals = {
+            "ms": time_ms(lambda: ek.tet10_apply(*args), graph=True),
+            "plain_ms": time_ms(lambda: ek.tet10_apply_reference(*args),
+                                reps=11, inner=2),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.bmm(ke, ue), inner=4,
+                                  graph=True),
+            "eager_ms": time_ms(lambda: ek.tet10_apply(*args)),
+        }
+        del ke, ue, args
+        print(f"[time] tet10_apply fixture_order2 {dname} C={C} "
+              + " ".join(f"{key}={val}" for key, val in vals.items()),
+              flush=True)
+        sfx = ("" if dtype == torch.float32 else "_fp64") + "_fixture_order2"
+        rec.update({f"{key}{sfx}": val for key, val in vals.items()})
+    del fix2
 
     # -- 10. the Galerkin voxel multigrid (TOPOPT_MG=galerkin): B9a, B9b ----
     def profile(fn, iters):

@@ -15,6 +15,8 @@ tet10 apply and the Ke-batch kernels run on curved tet10 elements (mid-edge
 nodes off their edges) with per-element materials.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -839,3 +841,93 @@ def test_redesigned_wrappers_refuse_what_their_kernels_do_not_take(cuda):
         ek.tet10_apply(coords, conn.cpu(), uu, lam, mu)
     with pytest.raises(TypeError):             # mixed float types
         ek.tet10_apply(coords, conn, uu, lam.double(), mu)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper designs of B1 (tet4) and B2 (hex8): the tile kernel, B2 with
+# eight threads an element
+# ---------------------------------------------------------------------------
+
+
+def _apply_case(element_type, case, dtype, device):
+    """tet4 / hex8 inputs on moved nodes: C = 2 large tiles + 5 (ragged),
+    C = 3 below one small tile, element 0 flattened to z = 0 (det 0 at
+    every point), SIMP lam, mu (the vfrac-0.4 density on a scale-2 tet beam;
+    the SIMP Hex8 fixture itself), and the largest shapes the solver
+    gives them (153,600 tets, 25,600 hexes), whose tiles are the large
+    ones."""
+    rng = np.random.default_rng(len(case))
+    k = 4 if element_type == "tet4" else 8
+    gen = tt.generate_grid_tet if k == 4 else tt.generate_grid_hex
+    simp = tt.create_simp_material_model(1.0, 0.3, 1e-8, 3.0)
+    if case == "simp" and k == 8:
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "data", "beam_vfrac_04_Raw.vtu")
+        mesh = tt.import_mesh(path)
+        lam, mu = simp.lame(tt.extract_cell_density(path))
+    elif case in ("simp", "large"):
+        s = 2 if case == "simp" else 8
+        mesh = gen(25 * s // 2, 4 * s, s, (0, 0, 0), (60.0, 20.0, 4.0))
+        lam, mu = (simp.lame(tt.models.vfrac04_density_for(mesh))
+                   if case == "simp" else
+                   (rng.uniform(0.1, 2.0, mesh.n_cells),
+                    rng.uniform(0.1, 2.0, mesh.n_cells)))
+    else:
+        mesh = gen(9, 5, 4, (0, 0, 0), (18.0, 7.5, 4.0))
+        lam = rng.uniform(0.1, 2.0, mesh.n_cells)
+        mu = rng.uniform(0.1, 2.0, mesh.n_cells)
+    h = 60.0 / 25 if case == "simp" else 1.0
+    coords = mesh.coords + rng.uniform(-0.1 * h, 0.1 * h, mesh.coords.shape)
+    conn = mesh.conn
+    n = {"ragged": 2 * ek.TILES[k][0] + 5,
+         "below_one_tile": ek.TILES[k][1] - 3}.get(case, mesh.n_cells)
+    if case == "degenerate":
+        coords[conn[0], 2] = 0.0
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+
+    return (t(coords), t(conn[:n], torch.int32),
+            t(rng.standard_normal(mesh.n_dofs)), t(np.asarray(lam)[:n]),
+            t(np.asarray(mu)[:n]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["ragged", "below_one_tile", "degenerate",
+                                  "simp", "large"])
+@pytest.mark.parametrize("element_type", ["tet4", "hex8"])
+def test_element_apply_tiles_match_plain_version(cuda, element_type, case,
+                                                 dtype):
+    kernel = ek.tet4_apply if element_type == "tet4" else ek.hex8_apply
+    plain = (ek.tet4_apply_reference if element_type == "tet4"
+             else ek.hex8_apply_reference)
+    args = _apply_case(element_type, case, dtype, cuda)
+    before = ek.LAUNCHES[kernel.__name__]
+    out = kernel(*args)
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES[kernel.__name__] == before + 2
+    ref = plain(*args)
+    assert out.shape == ref.shape == (args[1].shape[0], args[1].shape[1], 3)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+    assert torch.equal(out, again)          # bit-identical launch to launch
+    if case == "degenerate":                # det 0: the element adds nothing
+        assert bool((out[0] == 0).all()) and bool((ref[0] == 0).all())
+
+
+def test_element_apply_tiles_follow_a_conn_written_in_place(cuda):
+    """B1 and B2 read per-tile node lists built from conn once; a conn
+    written in place is seen by the next launch."""
+    for element_type, kernel, plain in (
+            ("tet4", ek.tet4_apply, ek.tet4_apply_reference),
+            ("hex8", ek.hex8_apply, ek.hex8_apply_reference)):
+        coords, conn, u, lam, mu = _apply_case(element_type, "ragged",
+                                               torch.float64, cuda)
+        kernel(coords, conn, u, lam, mu)
+        conn[3] = conn[3].flip(0)
+        out = kernel(coords, conn, u, lam, mu)
+        ref = plain(coords, conn, u, lam, mu)
+        assert float((out - ref).abs().max()) \
+            <= 1e-12 * float(ref.abs().max())

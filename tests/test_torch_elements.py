@@ -132,19 +132,27 @@ def test_element_tables_match_jax(element_type):
 
 
 def test_cuda_hex8_gradient_table_matches_element_tables():
-    """The __constant__ dN table written into csrc/element_apply.cu holds
-    exactly the float64 values element_tables('hex8', 2) computes."""
+    """The dN table the hex8 kernel of csrc/element_apply.cu forms holds
+    exactly the float64 values element_tables('hex8', 2) computes: its
+    three magnitude literals, picked by how many of the two other
+    directions put node k on Gauss point q's side, signed by node k's
+    sign along the derivative's direction (Hex8Body)."""
     path = os.path.join(os.path.dirname(port_elements.__file__), "..",
                         "csrc", "element_apply.cu")
     with open(path) as fh:
         src = fh.read()
-    consts = {name: float(val) for name, val in
-              re.findall(r"#define (H[ABC]) ([0-9.e-]+)", src)}
-    body = src[src.index("#define HEX_DN_TABLE"):]
-    body = body[:body.index("__constant__")]
-    entries = re.findall(r"([ -])(H[ABC])", body.split("{", 1)[1])
-    vals = np.array([(-1.0 if s == "-" else 1.0) * consts[n]
-                     for s, n in entries]).reshape(8, 8, 3)
+    mags = [float(re.search(rf"#define HEX_DN_NEAR{n} ([0-9.e-]+)",
+                            src).group(1)) for n in range(3)]
+    # VTK node k's signs along x, y, z and point q's (bit d of q), 1 for +
+    signs = [((k & 3) in (1, 2), (k & 3) >= 2, k >= 4) for k in range(8)]
+    vals = np.empty((8, 8, 3))
+    for q in range(8):
+        side = ((q & 1), (q >> 1) & 1, q >> 2)
+        for k in range(8):
+            for b in range(3):
+                near = sum(int(signs[k][d]) == side[d] for d in range(3)
+                           if d != b)
+                vals[q, k, b] = mags[near] if signs[k][b] else -mags[near]
     _, dN, w = port_elements.element_tables("hex8", 2)
     np.testing.assert_array_equal(vals, dN)
     np.testing.assert_array_equal(w, np.ones(8))

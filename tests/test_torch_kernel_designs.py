@@ -20,7 +20,8 @@ kernels' order, and held to the plain versions and to the JAX package:
   than a chunk, a coarse-level-like matrix (72 blocks a row) and row
   counts that are not a multiple of the tile; in float32 the order, and
   so every bit, does not depend on the chunk;
-- the A/B tool's ablation edits apply to this tree's source.
+- the A/B tool's ablation edits apply to this tree's source (its tet4
+  and hex8 designs: tests/test_torch_element_designs.py).
 """
 
 import math
@@ -230,12 +231,13 @@ def test_tet10_table_in_source_is_element_tables():
 def test_tet10_tiles_name_the_conn():
     """Each tile lists its distinct nodes once, sorted, padded with -1;
     the local ids give conn back; tiles of 32 below two 64-element tiles
-    per SM of the card."""
+    per SM of the card (the tile lists of every element kernel:
+    tests/test_torch_element_designs.py)."""
     m = tt.generate_grid_tet(7, 3, 2, (0, 0, 0),
                              (7.0, 3.0, 2.0)).to_quadratic()
     conn = torch.as_tensor(m.conn.astype(np.int32))
     for tile in (32, 64):
-        t = ek.tet10_tiles_of(conn, tile)
+        t = ek.element_tiles_of(conn, tile)
         C = conn.shape[0]
         assert t.tile == tile and t.nodes.shape == (-(-C // tile),
                                                     t.max_nodes)
@@ -248,22 +250,22 @@ def test_tet10_tiles_name_the_conn():
                 conn[r * tile:(r + 1) * tile]).to(torch.int32))
             assert bool((tile_nodes[live.numel():] == -1).all())
         assert t.max_nodes == max(int((n >= 0).sum()) for n in t.nodes)
-    assert ek.tet10_tiles(conn).tile == ek.TET10_SMALL_TILE
+    assert ek.element_tiles(conn).tile == ek.TILES[10][1]
 
 
 def test_tet10_tiles_cache_follows_the_tensor():
     m = tt.generate_grid_tet(3, 2, 2, (0, 0, 0),
                              (3.0, 2.0, 2.0)).to_quadratic()
     conn = torch.as_tensor(m.conn.astype(np.int32))
-    first = ek.tet10_tiles(conn)
-    assert ek.tet10_tiles(conn) is first
+    first = ek.element_tiles(conn)
+    assert ek.element_tiles(conn) is first
     conn[0, :2] = conn[0, :2].flip(0)          # written in place: rebuilt
-    again = ek.tet10_tiles(conn)
+    again = ek.element_tiles(conn)
     assert again is not first
     rows = torch.arange(conn.shape[0]) // again.tile
     assert torch.equal(again.nodes[rows[:, None], again.lconn.long()], conn)
     twin = conn.clone()                        # another tensor: its own
-    assert ek.tet10_tiles(twin) is not again
+    assert ek.element_tiles(twin) is not again
 
 
 # ---------------------------------------------------------------------------

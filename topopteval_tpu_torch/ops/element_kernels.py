@@ -3,7 +3,8 @@
 
 ``tet4_apply``, ``hex8_apply`` and ``tet10_apply`` compute
 f_e = Ke(coords, lam, mu) @ u_e for every element without forming Ke,
-gathering each element's node rows themselves:
+gathering each element's node rows themselves (the kernels through the
+per-tile node lists of :func:`element_tiles`):
 
     coords [N,3], conn [C,k] int32, u [3N], lam [C], mu [C]  ->  f_e [C,k,3]
 
@@ -46,15 +47,12 @@ def _library() -> ctypes.CDLL:
     for name in _NODES:
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{suffix}")
-            if name == "tet10_apply":
-                # coords, tile nodes, lconn, u, lam, mu, out, C, tile,
-                # max_nodes, then the rule's (a, b, w) by value
-                fn.argtypes = [ctypes.c_void_p] * 7 + [
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                    *[ctypes.c_double] * 3, ctypes.c_void_p]
-            else:
-                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
-                                                       ctypes.c_void_p]
+            # coords, tile nodes, lconn, u, lam, mu, out, C, tile,
+            # max_nodes, then (tet10) the rule's (a, b, w) by value
+            rule = [ctypes.c_double] * 3 if name == "tet10_apply" else []
+            fn.argtypes = [ctypes.c_void_p] * 7 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, *rule,
+                ctypes.c_void_p]
             fn.restype = ctypes.c_int
     lib.element_apply_error_string.argtypes = [ctypes.c_int]
     lib.element_apply_error_string.restype = ctypes.c_char_p
@@ -112,30 +110,36 @@ def tet10_rule() -> tuple:
 
 
 @dataclasses.dataclass(frozen=True)
-class Tet10Tiles:
-    """The tet10 kernel's view of a conn [C, 10]: tiles of ``tile``
+class ElementTiles:
+    """The element kernels' view of a conn [C, k]: tiles of ``tile``
     consecutive elements, each with its distinct nodes.
 
     ``nodes`` [n_tiles, max_nodes] int32 holds tile t's distinct node ids,
-    sorted, then -1; ``lconn`` [C, 10] int16 gives each element's nodes as
-    positions in its tile's list.  The kernel gathers each distinct node
-    row once per tile (about 3.3 times fewer rows than conn names on a
-    tet10 beam at 64 elements a tile), neighbouring rows together."""
+    sorted, then -1; ``lconn`` [C, k] int16 gives each element's nodes as
+    positions in its tile's list.  The kernels gather each distinct node
+    row once per tile, neighbouring rows together."""
 
     tile: int
     nodes: torch.Tensor
     lconn: torch.Tensor
     max_nodes: int
 
+    @property
+    def reuse(self) -> float:
+        """conn entries over the distinct rows the tiles gather."""
+        rows = int((self.nodes >= 0).sum())
+        return self.lconn.numel() / rows if rows else 0.0
 
-#: elements per tet10 tile (csrc/element_apply.cu instantiates both): 64,
-#: or 32 when tiles of 64 would not give every SM of the card two
-TET10_TILE = 64
-TET10_SMALL_TILE = 32
+
+#: elements per tile by nodes per element (csrc/element_apply.cu
+#: instantiates each pair as its body's TILE and SMALL_TILE): the first,
+#: or the second where tiles of the first would not give every SM of the
+#: card two
+TILES = {4: (128, 64), 8: (16, 8), 10: (64, 32)}
 
 
-def tet10_tiles_of(conn: torch.Tensor, tile: int) -> Tet10Tiles:
-    """Build :class:`Tet10Tiles` for ``conn`` on its device."""
+def element_tiles_of(conn: torch.Tensor, tile: int) -> ElementTiles:
+    """Build :class:`ElementTiles` for ``conn`` on its device."""
     C, k = conn.shape
     dev = conn.device
     n_tiles = -(-C // tile)
@@ -152,18 +156,18 @@ def tet10_tiles_of(conn: torch.Tensor, tile: int) -> Tet10Tiles:
     pos = torch.arange(uniq.numel(), device=dev) - start[t_uniq]
     nodes[t_uniq, pos] = (uniq % span).to(torch.int32)
     lconn = inv.reshape(C, k) - start[t_of][:, None]
-    return Tet10Tiles(tile, nodes, lconn.to(torch.int16), max_nodes)
+    return ElementTiles(tile, nodes, lconn.to(torch.int16), max_nodes)
 
 
-#: Tet10Tiles of the conn tensors seen last, keyed by tensor identity and
+#: ElementTiles of the conn tensors seen last, keyed by tensor identity and
 #: checked against a weak reference, the data pointer and the version
 _TILES: "collections.OrderedDict" = collections.OrderedDict()
 
 
-def tet10_tiles(conn: torch.Tensor) -> Tet10Tiles:
-    """:func:`tet10_tiles_of` for ``conn``, built once per conn tensor
-    (the operator passes the same one every matvec) and rebuilt when the
-    tensor is written in place."""
+def element_tiles(conn: torch.Tensor) -> ElementTiles:
+    """:func:`element_tiles_of` for ``conn`` at its element type's tile
+    (``TILES``), built once per conn tensor (the operator passes the same
+    one every matvec) and rebuilt when the tensor is written in place."""
     hit = _TILES.get(id(conn))
     if hit is not None:
         ref, ptr, version, tiles = hit
@@ -173,9 +177,9 @@ def tet10_tiles(conn: torch.Tensor) -> Tet10Tiles:
             return tiles
     sms = (torch.cuda.get_device_properties(conn.device).multi_processor_count
            if conn.is_cuda else 132)
-    tile = TET10_TILE if conn.shape[0] >= 2 * sms * TET10_TILE \
-        else TET10_SMALL_TILE
-    tiles = tet10_tiles_of(conn, tile)
+    big, small = TILES[conn.shape[1]]
+    tiles = element_tiles_of(conn, big if conn.shape[0] >= 2 * sms * big
+                             else small)
     _TILES[id(conn)] = (weakref.ref(conn), conn.data_ptr(), conn._version,
                         tiles)
     while len(_TILES) > 8:
@@ -218,21 +222,16 @@ def check_inputs(name: str, k: int, coords, conn, **per_node_or_cell):
 def _launch(name: str, coords, conn, u, lam, mu) -> torch.Tensor:
     k = _NODES[name]
     _, C = check_inputs(name, k, coords, conn, u=u, lam=lam, mu=mu)
-    if k % 4 == 0 and conn.data_ptr() % 16:
-        raise ValueError(f"{name}: conn must be 16-byte aligned")
     dtype = coords.dtype
     out = torch.empty((C, k, 3), dtype=dtype, device=coords.device)
     lib = _library()
     fn = getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
     stream = torch.cuda.current_stream(coords.device).cuda_stream
-    if name == "tet10_apply":
-        t = tet10_tiles(conn)
-        err = fn(coords.data_ptr(), t.nodes.data_ptr(), t.lconn.data_ptr(),
-                 u.data_ptr(), lam.data_ptr(), mu.data_ptr(), out.data_ptr(),
-                 C, t.tile, t.max_nodes, *tet10_rule(), stream)
-    else:
-        err = fn(coords.data_ptr(), conn.data_ptr(), u.data_ptr(),
-                 lam.data_ptr(), mu.data_ptr(), out.data_ptr(), C, stream)
+    t = element_tiles(conn)
+    rule = tet10_rule() if name == "tet10_apply" else ()
+    err = fn(coords.data_ptr(), t.nodes.data_ptr(), t.lconn.data_ptr(),
+             u.data_ptr(), lam.data_ptr(), mu.data_ptr(), out.data_ptr(), C,
+             t.tile, t.max_nodes, *rule, stream)
     if err != 0:
         msg = lib.element_apply_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "

@@ -1,36 +1,47 @@
-"""A/B timing of the tet10 apply (B7) and the block-SpMV (B4) against
-another tree's build of the same kernels, on one card, in turns.
+"""A/B timing of the element applies, B1 ``tet4_apply`` and B2
+``hex8_apply`` (and B7 ``tet10_apply``, whose kernel shares their tile
+skeleton), against another tree's build of the same kernels, on one card,
+in turns.
 
     python -m topopteval_tpu_torch.tools.kernel_ab --baseline DIR
-        [--only tet10|bell]
+        [--only tet4|hex8|tet10]
 
 ``DIR`` is a checkout of another commit of this repository (for example
 ``git archive`` of the parent, unpacked).  Its
-``topopteval_tpu_torch/csrc/element_apply.cu`` and ``bell_apply.cu`` are
-built beside this tree's (nvcc, ``-Xptxas=-v``) and bound with ctypes
-under the C interface they had before the B7/B4 redesign:
+``topopteval_tpu_torch/csrc/element_apply.cu`` is built beside this
+tree's (nvcc, ``-Xptxas=-v``) and bound with ctypes under the C interface
+it had before the B1/B2 redesign:
 
-    tet10_apply_f{32,64}(coords, conn, u, lam, mu, table, out, C, stream)
-    bell_matvec_{f32,f32_bf16,f64}(indptr, cols, vals, vals_lo, u, out,
-                                   n_rows, n_cols, stream)
+    tet4_apply_f{32,64}(coords, conn, u, lam, mu, out, C, stream)
+    hex8_apply_f{32,64}(coords, conn, u, lam, mu, out, C, stream)
+    tet10_apply_f{32,64}(coords, tnodes, lconn, u, lam, mu, out, C, tile,
+                         max_nodes, a, b, w, stream)
 
 This tree's kernels are called through their wrappers
-(``ops/element_kernels.tet10_apply``, ``ops/bell.bell_matvec``).  Every
-shape is timed baseline, this tree, this tree, baseline (CUDA events over
-a replayed CUDA graph of 10 launches, median of 21, as chip_smoke.py),
-and both outputs are held against the plain version.  The shapes are
-those chip_smoke.py times: B7 on the scale-8 tet10 beam (153,600
-elements) and on the Tet4 fixture at order 2, in float32 and float64; B4
-on the scale-16 block-ELL fine operator (float32 with its lo plane, the
-bf16 V-cycle copy, float64), its first coarse level, and the block-CSR
-of the Galerkin route's level-1 operator (``TOPOPT_MG=galerkin``).
+(``ops/element_kernels``).  Every shape is timed baseline, this tree,
+this tree, baseline (CUDA events over a replayed CUDA graph of 10
+launches, median of 21, as chip_smoke.py), and both outputs are held
+against the plain version; B1's output also against the baseline's, bit
+for bit.  The shapes: B1 on the Tet4 fixture (8,121 tets, gmsh order) and
+the generated beams of scale 8 and 16 (153,600 and 1,228,800 tets); B2 on
+the SIMP Hex8 fixture (4,800 hexes) and the 25,600-hex box, both with
+per-element SIMP lam, mu; B7 on the scale-8 tet10 beam and the Tet4
+fixture at order 2; each in float32 and float64, with the reuse of its
+tile lists (conn entries over gathered rows).
 
-Ablations price the stages of a B7 kernel: variants of a source made by
-fixed text edits (``ABLATIONS``), built and timed beside it.
-``nogather`` reads every element's node rows at rows 0-9 (conn still
-read), ``nostore`` computes the forces and stores none of them,
-``noforce`` (baseline) drops the force loop, ``nocompute`` (this tree)
-gathers and stores with no arithmetic in between.
+At every shape of B1 and B2 the stages are priced by variants of a
+source made by fixed text edits (``ABLATIONS``), built and timed beside
+it: ``nogather`` reads node rows that neighbour each other instead of the
+element's (conn still read), ``nostore`` computes the forces and stores
+none, ``nocompute`` gathers and stores with no arithmetic in between; and
+this tree's tile is swept: its two instantiated tiles, and a variant that
+instantiates one more (``tile256`` for B1, ``tile32`` for B2).
+
+Then solves with either tree's B1 and B2 swapped into the solver
+(``fem/operator._APPLY``), in turns: the scale-8 beam by fp64
+block-Jacobi CG (chip_smoke.py phase 4), the SIMP Hex8 fixture in fp32
+(phase 3), and the device time of an MG-PCG iteration of the Galerkin
+route at scale 16 in fp32 (phase 10f), under ``torch.profiler``.
 
 Prints one line per reading and ``AB OK`` last.  Needs a card and nvcc.
 """
@@ -49,45 +60,68 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..ops import bell
+from ..ops import element_kernels as ek
 from ._timing import bound_ms, time_ms
 
-#: fixed text edits that make an ablation variant of a tet10 kernel
+#: fixed text edits that make an ablation variant of an element_apply.cu
 #: source: (tree, variant) -> [(old, new), ...]; every ``old`` must occur
-#: exactly once
+#: exactly once.  A baseline variant edits both of its one-thread kernels.
 ABLATIONS: Dict[Tuple[str, str], List[Tuple[str, str]]] = {
-    ("baseline", "nogather"): [(
-        "const int64_t n = conn[(c0 + e) * 10 + k];",
-        "const int64_t n = k + (conn[(c0 + e) * 10 + k] >> 31);")],
-    ("baseline", "nostore"): [(
-        "if (live && (k & 3) == q) o[3 * k + a] = f;",
-        "if (live && (k & 3) == q && f == T(1234567)) o[3 * k + a] = f;")],
-    ("baseline", "noforce"): [(
-        """    T* o = out + (c0 + e) * 30;
-#pragma unroll 2
-    for (int k = 0; k < 10; ++k) {""",
-        """    T* o = out + (c0 + e) * 30;
-    if (live && q == 0 && sig[0][0] + sig[1][1] + sig[2][2] + sig[0][1]
-        + sig[0][2] + sig[1][2] == T(1234567)) o[0] = sig[0][0];
-#pragma unroll 2
-    for (int k = 0; k < 0; ++k) {""")],
+    ("baseline", "nogather"): [
+        ("const int64_t n[4] = {nd.x, nd.y, nd.z, nd.w};",
+         "const int64_t n[4] = {0 + (nd.x >> 31), 1 + (nd.y >> 31), "
+         "2 + (nd.z >> 31), 3 + (nd.w >> 31)};"),
+        ("const int64_t n[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, "
+         "hi.w};",
+         "const int64_t n[8] = {0 + (lo.x >> 31), 1 + (lo.y >> 31), "
+         "2 + (lo.z >> 31), 3 + (lo.w >> 31), 4 + (hi.x >> 31), "
+         "5 + (hi.y >> 31), 6 + (hi.z >> 31), 7 + (hi.w >> 31)};")],
+    ("baseline", "nostore"): [
+        ("""            o[3 * k + a] = vol * (sig[a][0] * g[k][0] + sig[a][1] * g[k][1] +
+                                  sig[a][2] * g[k][2]);""",
+         """            { const T v_ = vol * (sig[a][0] * g[k][0] + sig[a][1] * g[k][1] +
+                                  sig[a][2] * g[k][2]);
+              if (v_ == T(1234567)) o[3 * k + a] = v_; }"""),
+        ("for (int a = 0; a < 3; ++a) o[3 * k + a] = f[k][a];",
+         "for (int a = 0; a < 3; ++a) if (f[k][a] == T(1234567)) "
+         "o[3 * k + a] = f[k][a];")],
+    ("baseline", "nocompute"): [
+        ("""            o[3 * k + a] = vol * (sig[a][0] * g[k][0] + sig[a][1] * g[k][1] +
+                                  sig[a][2] * g[k][2]);""",
+         "            o[3 * k + a] = x[k][a] + uu[k][a] + lam[c] + mu[c];"),
+        ("for (int q = 0; q < 8; ++q) {", "for (int q = 0; q < 0; ++q) {"),
+        ("            f[k][a] = T(0);",
+         "            f[k][a] = x[k][a] + uu[k][a];")],
     ("current", "nogather"): [(
         "const int n = ids[j];",
         "const int n = j + (ids[j] >> 31);")],
     ("current", "nostore"): [(
-        "const int nval = 30 * ne, nvec = nval / VEC;",
-        "const int nval = s_f[0] == T(1234567) ? 30 * ne : 0, "
+        "const int nval = NF * ne, nvec = nval / VEC;",
+        "const int nval = s_f[0] == T(1234567) ? NF * ne : 0, "
         "nvec = nval / VEC;")],
     ("current", "nocompute"): [(
-        "        if (tid < ne) {\n            int l[10];",
-        "        if (tid < ne && C < 0) {\n            int l[10];")],
+        "        if (B::TPE > 1 || e < ne) {",
+        "        if (C < 0) {")],
+    # one more tile size each, for the sweep (the source's two are timed
+    # through the wrapper's library)
+    ("current", "tile256"): [(
+        "static constexpr int K = 4, TPE = 1, TILE = 128, SMALL_TILE = 64;",
+        "static constexpr int K = 4, TPE = 1, TILE = 256, SMALL_TILE = 64;")],
+    ("current", "tile32"): [(
+        "static constexpr int K = 8, TPE = 8, TILE = 16, SMALL_TILE = 8;",
+        "static constexpr int K = 8, TPE = 8, TILE = 32, SMALL_TILE = 8;")],
 }
+#: the tile each sweep variant adds, by kernel
+SWEEP = {"tet4_apply": ("tile256", 256), "hex8_apply": ("tile32", 32)}
 
-#: operations per tet10 apply that the function needs (itemised in
+#: operations per element apply that the function needs (itemised in
 #: chip_smoke.py FLOPS_PER_ELEMENT)
-FLOPS_TET10 = 1122
+FLOPS = {"tet4_apply": 166, "hex8_apply": 2256, "tet10_apply": 1122}
 
 TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "data")
 
 
 def ablated_source(text: str, edits: List[Tuple[str, str]]) -> str:
@@ -101,18 +135,18 @@ def ablated_source(text: str, edits: List[Tuple[str, str]]) -> str:
     return text
 
 
-def _bind_baseline(lib: ctypes.CDLL, kind: str) -> None:
-    if kind == "element_apply":
+def _bind(lib: ctypes.CDLL, current: bool) -> None:
+    """Declare the C signatures: this tree's (the wrapper's declarations)
+    or the baseline's one-thread interface of tet4 and hex8."""
+    for name in ("tet4_apply", "hex8_apply", "tet10_apply"):
         for sfx in ("f32", "f64"):
-            fn = getattr(lib, f"tet10_apply_{sfx}")
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong,
-                                                   ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    else:
-        for sfx in set(bell._SUFFIX.values()):
-            fn = getattr(lib, f"bell_matvec_{sfx}")
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
-                ctypes.c_void_p]
+            fn = getattr(lib, f"{name}_{sfx}")
+            if current or name == "tet10_apply":
+                fn.argtypes = getattr(ek._library(),
+                                      f"{name}_{sfx}").argtypes
+            else:
+                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+                                                       ctypes.c_void_p]
             fn.restype = ctypes.c_int
 
 
@@ -121,42 +155,27 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def tet10_call(lib, coords, conn, u, lam, mu):
-    """A call of a tet10 library with the table interface, or of this
-    tree's wrapper (``lib`` None)."""
-    from ..ops import element_kernels as ek
-    if lib is None:
-        return lambda: ek.tet10_apply(coords, conn, u, lam, mu)
+def apply_call(lib, name, coords, conn, u, lam, mu, tiles=None):
+    """A call of ``name`` in ``lib``: under the baseline's interface
+    (``tiles`` None, tet4/hex8) or on per-tile node lists (``tiles``)."""
     dtype = coords.dtype
-    table = ek.rule_table("tet10", dtype, coords.device)
-    fn = getattr(lib, "tet10_apply_f32" if dtype == torch.float32
-                 else "tet10_apply_f64")
-    C = conn.shape[0]
+    fn = getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+    C, k = conn.shape
 
     def call():
-        out = torch.empty((C, 10, 3), dtype=dtype, device=coords.device)
-        _raise_on(fn(coords.data_ptr(), conn.data_ptr(), u.data_ptr(),
-                     lam.data_ptr(), mu.data_ptr(), table.data_ptr(),
-                     out.data_ptr(), C,
-                     torch.cuda.current_stream().cuda_stream), "tet10")
-        return out
-    return call
-
-
-def bell_call(lib, u, A, lo=None):
-    """A call of a bell_matvec library with the lane-free interface, or of
-    this tree's wrapper (``lib`` None)."""
-    if lib is None:
-        return lambda: bell.bell_matvec(u, A, lo)
-    fn = getattr(lib, f"bell_matvec_{bell._SUFFIX[(u.dtype, A.vals.dtype)]}")
-
-    def call():
-        out = torch.empty((3, A.n_rows), dtype=u.dtype, device=u.device)
-        _raise_on(fn(A.indptr.data_ptr(), A.cols.data_ptr(),
-                     A.vals.data_ptr(),
-                     None if lo is None else lo.data_ptr(), u.data_ptr(),
-                     out.data_ptr(), A.n_rows, A.n_cols,
-                     torch.cuda.current_stream().cuda_stream), "bell")
+        # the stream of the call, which a CUDA graph's capture replaces
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((C, k, 3), dtype=dtype, device=coords.device)
+        if tiles is None:
+            err = fn(coords.data_ptr(), conn.data_ptr(), u.data_ptr(),
+                     lam.data_ptr(), mu.data_ptr(), out.data_ptr(), C, stream)
+        else:
+            rule = ek.tet10_rule() if name == "tet10_apply" else ()
+            err = fn(coords.data_ptr(), tiles.nodes.data_ptr(),
+                     tiles.lconn.data_ptr(), u.data_ptr(), lam.data_ptr(),
+                     mu.data_ptr(), out.data_ptr(), C, tiles.tile,
+                     tiles.max_nodes, *rule, stream)
+        _raise_on(err, name)
         return out
     return call
 
@@ -182,14 +201,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", required=True,
                     help="checkout of the tree to compare with")
-    ap.add_argument("--only", choices=("tet10", "bell"),
-                    help="one of the two kernels, its solves included")
+    ap.add_argument("--only", choices=("tet4", "hex8", "tet10"),
+                    help="one of the kernels (tet4 and hex8 with their "
+                         "solves)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
         return 1
-    from ..ops import element_kernels as ek
-
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -197,24 +215,23 @@ def main(argv=None) -> int:
     print(f"[ab] device {smi} | torch {torch.__version__}", flush=True)
 
     # -- build: this tree, the baseline and the ablation variants ----------
-    base_src = {k: os.path.join(args.baseline, "topopteval_tpu_torch",
-                                "csrc", f"{k}.cu")
-                for k in ("element_apply", "bell_apply")}
-    var_dir = os.path.join(_build.BUILD_DIR, "ablate")
-    os.makedirs(var_dir, exist_ok=True)
     texts = {}
-    for tree, path in (("baseline", base_src["element_apply"]),
-                       ("current", os.path.join(_build.CSRC_DIR,
-                                                "element_apply.cu"))):
+    for tree, path in (("baseline", os.path.join(
+            args.baseline, "topopteval_tpu_torch", "csrc",
+            "element_apply.cu")),
+            ("current", os.path.join(_build.CSRC_DIR, "element_apply.cu"))):
         with open(path) as fh:
             texts[tree] = fh.read()
-    paths = {f"base_{k}": p for k, p in base_src.items()}
+    var_dir = os.path.join(_build.BUILD_DIR, "ablate")
+    os.makedirs(var_dir, exist_ok=True)
+    paths = {"base_element_apply": os.path.join(
+        args.baseline, "topopteval_tpu_torch", "csrc", "element_apply.cu")}
     for (tree, variant), edits in ABLATIONS.items():
         path = os.path.join(var_dir, f"{tree}_{variant}.cu")
         with open(path, "w") as fh:
             fh.write(ablated_source(texts[tree], edits))
         paths[f"{tree}_{variant}"] = path
-    seconds = _build.build(["element_apply", "bell_apply"], paths)
+    seconds = _build.build(["element_apply"], paths)
     print("[ab] build " + json.dumps({k: round(v, 1)
                                       for k, v in seconds.items()}),
           flush=True)
@@ -224,284 +241,229 @@ def main(argv=None) -> int:
                 print(f"[ab] ptxas {name}: {line.strip()}", flush=True)
     libs = {}
     for name, path in paths.items():
-        lib = _build.load(name, path)
-        kind = "bell_apply" if "bell" in name else "element_apply"
-        if name.startswith("current_"):
-            # this tree's interface, bound by the wrapper's declarations
-            for sfx in ("f32", "f64"):
-                fn = getattr(lib, f"tet10_apply_{sfx}")
-                fn.argtypes = getattr(ek._library(),
-                                      f"tet10_apply_{sfx}").argtypes
-                fn.restype = ctypes.c_int
-        else:
-            _bind_baseline(lib, kind)
-        libs[name] = lib
+        libs[name] = _build.load(name, path)
+        _bind(libs[name], current=name.startswith("current_"))
 
-    def current_variant(lib, coords, conn, u, lam, mu):
-        fn = getattr(lib, "tet10_apply_f32" if coords.dtype == torch.float32
-                     else "tet10_apply_f64")
-        C = conn.shape[0]
-        t = ek.tet10_tiles(conn)
-
-        def call():
-            out = torch.empty((C, 10, 3), dtype=coords.dtype, device=dev)
-            _raise_on(fn(coords.data_ptr(), t.nodes.data_ptr(),
-                         t.lconn.data_ptr(), u.data_ptr(), lam.data_ptr(),
-                         mu.data_ptr(), out.data_ptr(), C, t.tile,
-                         t.max_nodes, *ek.tet10_rule(),
-                         torch.cuda.current_stream().cuda_stream), "variant")
-            return out
-        return call
-
-    # -- the readings ---------------------------------------------------------
-    quad = p16 = None
-    if args.only != "bell":
-        quad = tet10_phase(libs, current_variant, dev)
+    kernels = (["tet4_apply", "hex8_apply", "tet10_apply"]
+               if args.only is None else [f"{args.only}_apply"])
+    for name in kernels:
+        element_phase(name, libs, dev)
     if args.only != "tet10":
-        p16 = bell_phase(libs, dev)
-    solve_phase(libs, dev, quad, p16)
+        solve_phase(libs, dev, [n for n in kernels if n != "tet10_apply"])
     print("AB OK")
     return 0
 
 
-def tet10_phase(libs, current_variant, dev):
-    """B7 on the scale-8 tet10 beam (with the ablations) and on the Tet4
-    fixture at order 2, fp32 and fp64; parity is gated on the beam."""
+def shapes_of(name):
+    """(label, mesh, lam [C], mu [C]) of the shapes ``name`` is timed
+    at."""
     import topopteval_tpu_torch as tt
-    from ..ops import element_kernels as ek
-    s = 8
-    quad = tt.generate_grid_tet(25 * s // 2, 4 * s, s, (0, 0, 0),
-                                (60.0, 20.0, 4.0)).to_quadratic()
-    fixture = tt.import_mesh(os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__)))), "data",
-        "beam_linear_volume_mesh.vtu")).to_quadratic()
     lam0, mu0 = tt.lame_parameters(1.0, 0.3)
-    for label, mesh in ((f"beam{s}", quad), ("fixture", fixture)):
+
+    def uniform(label, mesh):
+        return (label, mesh, np.full(mesh.n_cells, lam0),
+                np.full(mesh.n_cells, mu0))
+
+    def beam(s):
+        return tt.generate_grid_tet(25 * s // 2, 4 * s, s, (0, 0, 0),
+                                    (60.0, 20.0, 4.0))
+
+    fixture = os.path.join(DATA, "beam_linear_volume_mesh.vtu")
+    if name == "tet4_apply":
+        return [uniform("fixture", tt.import_mesh(fixture)),
+                uniform("beam8", beam(8)), uniform("beam16", beam(16))]
+    if name == "tet10_apply":
+        return [uniform("fixture_order2", tt.import_mesh(fixture)
+                        .to_quadratic()),
+                uniform("beam8", beam(8).to_quadratic())]
+    simp = tt.create_simp_material_model(1.0, 0.3, 1e-8, 3.0)
+    path = os.path.join(DATA, "beam_vfrac_04_Raw.vtu")
+    box = tt.generate_grid_hex(100, 32, 8, (0, 0, 0), (60.0, 20.0, 4.0))
+    return [("simp_fixture", tt.import_mesh(path),
+             *simp.lame(tt.extract_cell_density(path))),
+            ("box", box, *simp.lame(tt.models.vfrac04_density_for(box)))]
+
+
+def element_phase(name, libs, dev):
+    """One kernel at its shapes in float32 and float64: parity, bitwise
+    (B1) and repeat checks, times in turns, and for B1 and B2 the
+    ablations and the tile sweep."""
+    plain = getattr(ek, f"{name}_reference")
+    wrapper = getattr(ek, name)
+    shapes = shapes_of(name)
+    for label, mesh, lam, mu in shapes:
         rng = np.random.default_rng(9)
         u_np = rng.standard_normal(mesh.n_dofs)
         for dtype in (torch.float32, torch.float64):
             C = mesh.n_cells
-            args7 = (torch.as_tensor(mesh.coords, dtype=dtype, device=dev),
+            args5 = (torch.as_tensor(mesh.coords, dtype=dtype, device=dev),
                      torch.as_tensor(mesh.conn, device=dev),
                      torch.as_tensor(u_np, dtype=dtype, device=dev),
-                     torch.full((C,), lam0, dtype=dtype, device=dev),
-                     torch.full((C,), mu0, dtype=dtype, device=dev))
-            ref = ek.tet10_apply_reference(*args7)
-            base = tet10_call(libs["base_element_apply"], *args7)
-            cur = tet10_call(None, *args7)
-            o1, o2 = cur(), cur()
+                     torch.as_tensor(lam, dtype=dtype, device=dev),
+                     torch.as_tensor(mu, dtype=dtype, device=dev))
+            tiles = ek.element_tiles(args5[1])
+            ref = plain(*args5)
+            base = apply_call(libs["base_element_apply"], name, *args5,
+                              tiles=tiles if name == "tet10_apply" else None)
+            cur = lambda: wrapper(*args5)                     # noqa: E731
+            o1, o2, ob = cur(), cur(), base()
             torch.cuda.synchronize()
-            errs = {"baseline": _err(base(), ref), "current": _err(o1, ref),
+            errs = {"baseline": _err(ob, ref), "current": _err(o1, ref),
                     "repeat_identical": bool(torch.equal(o1, o2))}
-            ok = (errs["current"] <= TOLERANCE[dtype]
-                  and errs["baseline"] <= TOLERANCE[dtype]
-                  and errs["repeat_identical"])
-            item = args7[0].element_size()
-            nbytes = (args7[0].numel() * item + args7[1].numel() * 4
-                      + args7[2].numel() * item + 2 * C * item
-                      + 30 * C * item)
-            b_ms, b_by = bound_ms(nbytes, FLOPS_TET10 * C, dtype)
+            if name == "tet4_apply":
+                errs["bitwise_baseline"] = bool(torch.equal(o1, ob))
+                errs["entries_differing"] = int((o1 != ob).sum())
+                errs["max_abs_diff_baseline"] = float((o1 - ob).abs().max())
+            item = args5[0].element_size()
+            k = args5[1].shape[1]
+            nbytes = (args5[0].numel() * item + args5[1].numel() * 4
+                      + args5[2].numel() * item + 2 * C * item
+                      + 3 * k * C * item)
+            b_ms, b_by = bound_ms(nbytes, FLOPS[name] * C, dtype)
             calls = {"baseline": base, "current": cur}
-            if label.startswith("beam"):
+            if name in SWEEP:
                 for (tree, variant) in ABLATIONS:
+                    if variant.startswith("tile"):
+                        continue
                     lib = libs[f"{tree}_{variant}"]
-                    calls[f"{tree}_{variant}"] = (
-                        tet10_call(lib, *args7) if tree == "baseline"
-                        else current_variant(lib, *args7))
+                    calls[f"{tree}_{variant}"] = apply_call(
+                        lib, name, *args5,
+                        tiles=tiles if tree == "current" else None)
+                variant, tile = SWEEP[name]
+                for t in ek.TILES[k]:
+                    if t != tiles.tile:
+                        calls[f"current_tile{t}"] = apply_call(
+                            ek._library(), name, *args5,
+                            tiles=ek.element_tiles_of(args5[1], t))
+                calls[f"current_{variant}"] = apply_call(
+                    libs[f"current_{variant}"], name, *args5,
+                    tiles=ek.element_tiles_of(args5[1], tile))
             times = ab_times(calls, dev)
-            print(f"[ab] tet10_apply {label} {str(dtype)[6:]} C={C} "
-                  f"bound_ms={b_ms} ({b_by}) " + json.dumps(times)
-                  + f" rel_err={json.dumps(errs)} speedup="
-                  f"{times['baseline'] / times['current']:.3f}", flush=True)
-            if label.startswith("beam") and not ok:
-                raise AssertionError(f"tet10 {label} {dtype}: {errs}")
-            del args7, ref
+            ok = (errs["current"] <= TOLERANCE[dtype]
+                  and errs["repeat_identical"])
+            print(f"[ab] {name} {label} {str(dtype)[6:]} C={C} "
+                  f"tile={tiles.tile} max_nodes={tiles.max_nodes} "
+                  f"reuse={tiles.reuse:.3f} bound_ms={b_ms} ({b_by}) "
+                  + json.dumps(times) + f" rel_err={json.dumps(errs)} "
+                  f"speedup={times['baseline'] / times['current']:.3f}",
+                  flush=True)
+            # B7's fixture at order 2 is not gated in float32: its slivers
+            # leave the float32 plain version itself ~2e-5 uncertain
+            if not ok and not (name == "tet10_apply"
+                               and label.startswith("fixture")
+                               and dtype == torch.float32):
+                raise AssertionError(f"{name} {label} {dtype}: {errs}")
+            del args5, ref, o1, o2, ob, calls
             torch.cuda.empty_cache()
-    return quad
 
 
-
-def bell_phase(libs, dev):
-    """B4 at the scale-16 block-ELL shapes and the Galerkin route's level
-    1."""
-    import topopteval_tpu_torch as tt
-    from .. import api as tt_api
-    from ..fem import bell as fb
-    from ..ops import bell as bo
-    os.environ["TOPOPT_MG_CACHE_DIR"] = "off"
-    lam0, mu0 = tt.lame_parameters(1.0, 0.3)
-    s = 16
-    mesh = tt.generate_grid_tet(25 * s // 2, 4 * s, s, (0, 0, 0),
-                                (60.0, 20.0, 4.0))
-    mesh.structured_info = None
-
-    def setup(dtype):
-        p = tt.setup_problem(mesh, dtype=dtype)
-        tt.assemble_stiffness_matrix(p, lam0, mu0)
-        tt.apply_fixed_boundary(p, tt.nodes_at_plane(p.mesh, 0, 0.0))
-        tt.apply_force(p, tt.nodes_at_plane(p.mesh, 0, 60.0),
-                       [0.0, 0.0, -1.0])
-        return p
-
-    p16 = setup(torch.float32)
-    op, M = tt_api._get_multigrid(p16)
-    hb = op.host_bsr
-    Np = op.matrix.n_rows_p
-    A_hi, lo = op.matrix.A, op.matrix.vals_lo
-    A64 = bo.BlockCSR.from_numpy(
-        fb._pad_indptr(hb["indptr"], Np), hb["indices"],
-        np.asarray(hb["data"]).reshape(-1, 9), Np, torch.float64, dev)
-    C1 = M.levels[1].op.A
-
-    def as_type(A, dtype):
-        return A.with_vals(A.vals.to(dtype))
-
-    f32, f64 = torch.float32, torch.float64
-    cases = [("fine_fp32_lo", A_hi, lo, f32),
-             ("fine_bf16", M.levels[0].op.A, None, f32),
-             ("fine_fp64", A64, None, f64),
-             ("coarse1_bf16", C1, None, f32),
-             ("coarse1_fp64", as_type(C1, f64), None, f64)]
-    os.environ["TOPOPT_MG"] = "galerkin"
-    try:
-        _, M_g = tt_api._get_multigrid(setup(torch.float32))
-    finally:
-        os.environ.pop("TOPOPT_MG", None)
-    L1 = M_g.levels[1].op
-    n = L1.n_nodes
-    rows, cols, data = L1.triplets()
-    cases += [(f"galerkin_level1_{str(dt)[6:]}",
-               bo.pack_csr(rows, cols, data, n, n, dt, dev), None, dt)
-              for dt in (f32, f64)]
-    del M_g, L1
-    rng = np.random.default_rng(16)
-    for label, A, lo_, vdt in cases:
-        u = torch.as_tensor(rng.standard_normal((3, A.n_cols)), dtype=vdt,
-                            device=dev)
-        ref = bo.bell_matvec_reference(u, A, lo_)
-        base = bell_call(libs["base_bell_apply"], u, A, lo_)
-        cur = bell_call(None, u, A, lo_)
-        o1, o2 = cur(), cur()
-        torch.cuda.synchronize()
-        errs = {"baseline": _err(base(), ref), "current": _err(o1, ref),
-                "repeat_identical": bool(torch.equal(o1, o2))}
-        nbytes = (A.indptr.numel() * 4 + A.nnz * 4
-                  + A.vals.numel() * A.vals.element_size()
-                  + (0 if lo_ is None else lo_.numel() * lo_.element_size())
-                  + u.numel() * u.element_size()
-                  + 3 * A.n_rows * u.element_size())
-        b_ms, b_by = bound_ms(nbytes, 18 * A.nnz * (1 if lo_ is None else 2),
-                              vdt)
-        times = ab_times({"baseline": base, "current": cur}, dev)
-        print(f"[ab] bell_matvec {label} rows={A.n_rows} nnz={A.nnz} "
-              f"lanes={bo.bell_lanes(A.n_rows, A.nnz)} bound_ms={b_ms} "
-              f"({b_by}) " + json.dumps(times)
-              + f" rel_err={json.dumps(errs)} speedup="
-              f"{times['baseline'] / times['current']:.3f}", flush=True)
-        if not (errs["current"] <= TOLERANCE[vdt]
-                and errs["repeat_identical"]):
-            raise AssertionError(f"bell {label}: {errs}")
-    return p16
-
-
-def solve_phase(libs, dev, quad, p16):
-    """End-to-end readings, this tree's kernels against the baseline's
-    swapped into the same solver (``fem/operator._APPLY["tet10"]`` and
-    ``fem/bell.bell_matvec``), in turns: the tet10 beam by fp64
-    block-Jacobi CG (chip_smoke.py 9e), the Tet4 fixture at order 2 in
-    fp64 (9d), and the scale-16 block-ELL MG-PCG in fp32 (8a), whose
-    iterations are also timed alone and profiled (8g)."""
+def solve_phase(libs, dev, names):
+    """End-to-end readings, this tree's B1/B2 against the baseline's
+    swapped into the same solver (``fem/operator._APPLY``), in turns."""
     import time
 
     import topopteval_tpu_torch as tt
     from .. import api as tt_api
-    from ..fem import bell as fb
     from ..fem import operator as fop
     from ..fem.solvers import cg
 
-    kernels = {"current": (fop._APPLY["tet10"], fb.bell_matvec),
-               "baseline": (
-                   lambda c, n, u, lm, m: tet10_call(
-                       libs["base_element_apply"], c, n, u, lm, m)(),
-                   lambda u, A, lo=None: bell_call(
-                       libs["base_bell_apply"], u, A, lo)())}
+    base = libs["base_element_apply"]
+    kernels = {"current": dict(fop._APPLY),
+               "baseline": {**fop._APPLY, **{
+                   et: (lambda c, n, u, lm, m, _n=f"{et}_apply":
+                        apply_call(base, _n, c, n, u, lm, m)())
+                   for et in ("tet4", "hex8")}}}
 
     def use(tree):
-        fop._APPLY["tet10"], fb.bell_matvec = kernels[tree]
+        fop._APPLY.update(kernels[tree])
 
     lam0, mu0 = tt.lame_parameters(1.0, 0.3)
     cg_cfg = tt.SolverConfig(method="cg", preconditioner="block_diagonal",
                              tolerance=1e-10, max_iterations=20000,
                              verbose=False)
-    mg_cfg = tt.SolverConfig(method="cg", preconditioner="multigrid",
-                             tolerance=1e-10, max_iterations=500,
-                             verbose=False)
 
-    def problem(mesh, dtype, order=1):
-        p = tt.setup_problem(mesh, interpolation_order=order, dtype=dtype)
-        tt.assemble_stiffness_matrix(p, lam0, mu0)
+    def problem(mesh, dtype, density=None):
+        p = tt.setup_problem(mesh, dtype=dtype)
+        if density is None:
+            tt.assemble_stiffness_matrix(p, lam0, mu0)
+        else:
+            tt.assemble_stiffness_matrix_simp(
+                p, tt.create_simp_material_model(1.0, 0.3, 1e-8, 3.0),
+                density)
         tt.apply_fixed_boundary(p, tt.nodes_at_plane(p.mesh, 0, 0.0))
         tt.apply_force(p, tt.nodes_at_plane(p.mesh, 0, 60.0),
                        [0.0, 0.0, -1.0])
         return p
 
     cases = []
-    if quad is not None:
-        fixture = tt.import_mesh(os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))), "data",
-            "beam_linear_volume_mesh.vtu"))
-        cases += [("tet10_beam_fp64_bj", problem(quad, torch.float64),
-                   cg_cfg),
-                  ("tet10_fixture_fp64", problem(fixture, torch.float64, 2),
-                   cg_cfg)]
-    if p16 is not None:
-        cases.append(("bell_beam16_fp32", p16, mg_cfg))
+    if "tet4_apply" in names:
+        cases.append(("beam8_fp64_bj", problem(tt.generate_grid_tet(
+            100, 32, 8, (0, 0, 0), (60.0, 20.0, 4.0)), torch.float64)))
+    if "hex8_apply" in names:
+        path = os.path.join(DATA, "beam_vfrac_04_Raw.vtu")
+        cases.append(("simp_hex8_fp32_bj", problem(
+            tt.import_mesh(path), torch.float32,
+            tt.extract_cell_density(path))))
     try:
-        for tag, p, cfg in cases:
+        for tag, p in cases:
             got = {}
             for tree in ("baseline", "current", "current", "baseline"):
                 use(tree)
                 t0 = time.perf_counter()
-                r = tt.solve_system(p, cfg)
+                r = tt.solve_system(p, cg_cfg)
                 torch.cuda.synchronize()
                 got.setdefault(tree, []).append(
                     {"iterations": r.iterations, "converged": r.converged,
                      "energy": r.energy, "solve_time_s": r.solve_time,
+                     "ms_per_iter": 1e3 * r.solve_time
+                     / max(r.iterations, 1),
                      "wall_s": time.perf_counter() - t0})
             e = {t: v[0]["energy"] for t, v in got.items()}
             print(f"[ab] solve {tag} " + json.dumps(got)
                   + f" energy_rel_diff="
                   f"{abs(e['current'] - e['baseline']) / abs(e['baseline']):.3e}",
                   flush=True)
-        if p16 is not None:
+        if "tet4_apply" not in names:
+            return
+        # the Galerkin route's MG-PCG iteration at scale 16 (fp32), B1 on
+        # its fine level: device ms per iteration under the profiler
+        os.environ["TOPOPT_MG"] = "galerkin"
+        try:
+            mesh = tt.generate_grid_tet(200, 64, 16, (0, 0, 0),
+                                        (60.0, 20.0, 4.0))
+            mesh.structured_info = None
+            p16 = problem(mesh, torch.float32)
             op, M = tt_api._get_multigrid(p16)
-            b = torch.as_tensor(op.to_cm(p16.f), dtype=torch.float32,
-                                device=dev) * op.free_mask
-            iters = 20
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            per = {}
-            for tree in ("baseline", "current", "current", "baseline"):
-                use(tree)
-                cg(op, b, M=M, tol=0.0, maxiter=3)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
+        finally:
+            os.environ.pop("TOPOPT_MG", None)
+        b = torch.as_tensor(p16.f, dtype=torch.float32, device=dev) \
+            * op.free_mask
+        iters = 20
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        per = {}
+        for tree in ("baseline", "current", "current", "baseline"):
+            use(tree)
+            cg(op, b, M=M, tol=0.0, maxiter=3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cg(op, b, M=M, tol=0.0, maxiter=iters)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / iters
+            with torch.profiler.profile(activities=acts) as prof:
                 cg(op, b, M=M, tol=0.0, maxiter=iters)
                 torch.cuda.synchronize()
-                wall = 1e3 * (time.perf_counter() - t0) / iters
-                with torch.profiler.profile(activities=acts) as prof:
-                    cg(op, b, M=M, tol=0.0, maxiter=iters)
-                    torch.cuda.synchronize()
-                dev_ms = sum(e.self_device_time_total
-                             for e in prof.key_averages()
-                             if e.device_type
-                             == torch.autograd.DeviceType.CUDA) / 1e3 / iters
-                per.setdefault(tree, []).append(
-                    {"wall_ms_per_iter": wall, "device_ms_per_iter": dev_ms})
-            print("[ab] mgpcg_iteration bell_beam16_fp32 " + json.dumps(per),
-                  flush=True)
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 \
+                / iters
+            b1 = sum(e.self_device_time_total for e in rows
+                     if "tet4" in e.key or "Tet4" in e.key) / 1e3 / iters
+            per.setdefault(tree, []).append(
+                {"wall_ms_per_iter": wall, "device_ms_per_iter": dev_ms,
+                 "b1_device_ms_per_iter": b1})
+        print("[ab] mgpcg_iteration galerkin_beam16_fp32 " + json.dumps(per),
+              flush=True)
     finally:
         use("current")
 
