@@ -290,9 +290,12 @@ def galerkin_phase(env):
         kw = {"node_major": node_major, "n_rows": n_rows}
         before = el.LAUNCHES[name]
         out = kern(*args, **kw)
+        again = kern(*args, **kw)
         sync()
-        check(el.LAUNCHES[name] == before + 1,
-              f"{name} did not count its launch")
+        check(el.LAUNCHES[name] == before + 2 * on_card,
+              f"{name} did not count its launches")
+        check(bool(torch.equal(out, again)),
+              f"{name} {label}: a repeat differs")
         ref = plain(*args, **kw)
         check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
               f"{name} {label}: shape {tuple(out.shape)} or not finite")
@@ -1416,7 +1419,8 @@ def main() -> int:
         oracles = json.load(fh)
 
     def stencil_args(dims, dtype, simp, seed=0):
-        """(u, esc, ke, dims) on the card for a box of BEAM_BOX."""
+        """((u, esc, ke, dims), the cell table) on the card for a box of
+        BEAM_BOX."""
         nx, ny, nz = dims
         rng = np.random.default_rng(seed)
         op = tt.StructuredStiffnessOperator.build(
@@ -1425,25 +1429,33 @@ def main() -> int:
             dtype=dtype)
         u = torch.as_tensor(rng.standard_normal(op.n_dofs), dtype=dtype,
                             device=dev)
-        return u, op.escale, op.ke, dims
+        return (u, op.escale, op.ke, dims), op.table
 
     # 7a. parity at the scale-16 lattice, its coarsest smoothed level and
-    # an odd box where every boundary case occurs
+    # an odd box where every boundary case occurs; each kernel also
+    # repeats its own output bit for bit.  The two kernels compute the
+    # function in two forms (the six-tet cell form, Ke): they agree
+    # within the tolerance, not bit for bit
     stencil_errs = {}
     for dims in ((200, 64, 16), (50, 16, 4), (7, 5, 3)):
         for dtype in (torch.float64, torch.float32):
             dname = str(dtype).split(".")[1]
             for simp in (False, True):
-                args = stencil_args(dims, dtype, simp)
+                args, table = stencil_args(dims, dtype, simp)
                 out_p = st.stencil_matvec_reference(*args)
                 scale = float(out_p.abs().max())
                 outs = {}
                 for name, kernel in stencil_fns.items():
                     before = st.LAUNCHES[name]
-                    outs[name] = st.stencil_matvec(*args, kernel=kernel)
+                    outs[name] = st.stencil_matvec(*args, kernel=kernel,
+                                                   table=table)
+                    again = st.stencil_matvec(*args, kernel=kernel,
+                                              table=table)
                     torch.cuda.synchronize()
-                    check(st.LAUNCHES[name] == before + 1,
-                          f"{name} did not count its launch")
+                    check(st.LAUNCHES[name] == before + 2,
+                          f"{name} did not count its launches")
+                    check(bool(torch.equal(outs[name], again)),
+                          f"{name} {dname} {dims}: a repeat differs")
                     check(bool(torch.isfinite(outs[name]).all()),
                           f"{name} not finite")
                     err = float((outs[name] - out_p).abs().max())
@@ -1604,7 +1616,7 @@ def main() -> int:
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).split(".")[1]
             for simp in (False, True):
-                args = stencil_args(dims16, dtype, simp)
+                args, table = stencil_args(dims16, dtype, simp)
                 u, esc = args[0], args[1]
                 item = u.element_size()
                 nbytes = (2 * u.numel() + (n_cells if simp else 0)) * item
@@ -1618,7 +1630,7 @@ def main() -> int:
                       f"two-conv yardstick is off by {lib_err:.3e} {dname}")
                 vals = {
                     "ms": time_ms(lambda: st.stencil_matvec(
-                        *args, kernel=kernel), graph=True),
+                        *args, kernel=kernel, table=table), graph=True),
                     "plain_ms": time_ms(
                         lambda: st.stencil_matvec_reference(*args),
                         reps=11, inner=2),
@@ -1627,7 +1639,7 @@ def main() -> int:
                                           inner=4),
                     "max_abs_err": stencil_errs[(name, dname)],
                     "eager_ms": time_ms(lambda: st.stencil_matvec(
-                        *args, kernel=kernel)),
+                        *args, kernel=kernel, table=table)),
                 }
                 print(f"[time] {name} {dname} dims={dims16} "
                       f"esc={'random' if simp else 'none'} " + " ".join(

@@ -10,8 +10,10 @@ with
 Tolerances are relative to the largest plain-version entry: 1e-12 in
 float64 and 1e-5 in float32 (the kernels contract multiply-adds into
 FMAs and sum in another order than the batched plain version).  The two
-stencil kernels share their arithmetic and must agree bit for bit.  The
-tet10 apply and the Ke-batch kernels run on curved tet10 elements (mid-edge
+stencil kernels compute one function in two forms (the plane kernel from
+the six tets' cell table, the window kernel from Ke): each repeats its
+own output bit for bit, and they agree within the tolerance.  The tet10
+apply and the Ke-batch kernels run on curved tet10 elements (mid-edge
 nodes off their edges) with per-element materials.
 """
 
@@ -112,6 +114,8 @@ def test_operator_on_cuda_matches_cpu(cuda, element_type):
 
 
 def _stencil_inputs(dims, dtype, device, simp, seed=0):
+    """((u, esc, ke, dims), the cell table) on a box of non-cubic
+    cells."""
     nx, ny, nz = dims
     rng = np.random.default_rng(seed)
     op = tt.StructuredStiffnessOperator.build(
@@ -121,55 +125,110 @@ def _stencil_inputs(dims, dtype, device, simp, seed=0):
         dtype=dtype, device=device)
     u = torch.as_tensor(rng.standard_normal(op.n_dofs), dtype=dtype,
                         device=device)
-    return u, op.escale, op.ke, dims
+    return (u, op.escale, op.ke, dims), op.table
+
+
+STENCIL_DIMS = [(7, 5, 3), (1, 1, 1), (40, 9, 6), (25, 8, 2), (31, 7, 17)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("simp", [False, True], ids=["uniform", "simp"])
-@pytest.mark.parametrize("dims", [(7, 5, 3), (1, 1, 1), (40, 9, 6)])
+@pytest.mark.parametrize("dims", STENCIL_DIMS)
 @pytest.mark.parametrize("kernel", ["plane", "window"])
 def test_stencil_kernel_matches_plain_version(cuda, kernel, dims, simp,
                                               dtype):
-    """Odd dims: every boundary case, ragged blocks and ragged tiles."""
-    args = _stencil_inputs(dims, dtype, cuda, simp)
+    """Odd dims: every boundary case, ragged tiles and z chunks (31 x 7
+    cells is one plane-kernel tile of nodes less one row and column; the
+    scale-2 box 25 x 8 x 2); each kernel repeats its own bits."""
+    args, table = _stencil_inputs(dims, dtype, cuda, simp)
     name = f"stencil_{kernel}"
     before = dict(stencil.LAUNCHES)
-    out = stencil.stencil_matvec(*args, kernel=kernel)
+    out = stencil.stencil_matvec(*args, kernel=kernel, table=table)
+    again = stencil.stencil_matvec(*args, kernel=kernel, table=table)
     torch.cuda.synchronize()
     # a CUDA tensor never reaches the plain version: one launch per call
-    assert stencil.LAUNCHES[name] == before[name] + 1
-    assert sum(stencil.LAUNCHES.values()) == sum(before.values()) + 1
+    assert stencil.LAUNCHES[name] == before[name] + 2
+    assert sum(stencil.LAUNCHES.values()) == sum(before.values()) + 2
     ref = stencil.stencil_matvec_reference(*args)
     scale = float(ref.abs().max())
     assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_stencil_kernels_agree_bit_for_bit(cuda, dtype):
-    args = _stencil_inputs((37, 6, 9), dtype, cuda, simp=True)
-    a = stencil.stencil_matvec(*args, kernel="plane")
-    b = stencil.stencil_matvec(*args, kernel="window")
-    assert torch.equal(a, b)
+def test_stencil_kernels_agree_within_tolerance(cuda, dtype):
+    """The plane kernel (six-tet cell form) and the window kernel (Ke) sum in
+    different orders: each within the tolerance of the plain version and
+    of the other, each bit for bit its own repeat."""
+    args, table = _stencil_inputs((37, 6, 9), dtype, cuda, simp=True)
+    a = stencil.stencil_matvec(*args, kernel="plane", table=table)
+    b = stencil.stencil_matvec(*args, kernel="window", table=table)
+    ref = stencil.stencil_matvec_reference(*args)
+    scale = float(ref.abs().max())
+    for out in (a, b):
+        assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+    assert float((a - b).abs().max()) <= TOL[dtype] * scale
+    assert torch.equal(a, stencil.stencil_matvec(*args, kernel="plane",
+                                                 table=table))
+    assert torch.equal(b, stencil.stencil_matvec(*args, kernel="window",
+                                                 table=table))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stencil_plane_z_chunks_give_the_same_bits(cuda, dtype):
+    """Every z chunk of the plane kernel (0: its own choice) gives the
+    same bits: the order of a node's sum is fixed by the box alone."""
+    args, table = _stencil_inputs((33, 9, 11), dtype, cuda, simp=True)
+    u, esc, _, (nx, ny, nz) = args
+    lib = stencil._library()
+    fn = getattr(lib, "stencil_plane_f32" if dtype == torch.float32
+                 else "stencil_plane_f64")
+    outs = []
+    for zn in (0, 1, 2, 5, 12, 100):
+        y = torch.full_like(u, float("nan"))
+        err = fn(u.data_ptr(), esc.data_ptr(), table.data_ptr(), y.data_ptr(),
+                 nx, ny, nz, zn, torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        outs.append(y)
+    torch.cuda.synchronize()
+    assert 1 <= lib.stencil_plane_chunk(nx, ny, nz,
+                                        dtype == torch.float64) <= nz + 1
+    for y in outs[1:]:
+        assert torch.equal(y, outs[0])
+    ref = stencil.stencil_matvec_reference(*args)
+    assert float((outs[0] - ref).abs().max()) \
+        <= TOL[dtype] * float(ref.abs().max())
 
 
 def test_stencil_kernel_choice_follows_the_environment(cuda, monkeypatch):
-    args = _stencil_inputs((6, 4, 2), torch.float64, cuda, simp=False)
+    args, table = _stencil_inputs((6, 4, 2), torch.float64, cuda, simp=False)
     monkeypatch.setenv("TOPOPT_STENCIL_KERNEL", "window")
     before = stencil.LAUNCHES["stencil_window"]
-    stencil.stencil_matvec(*args)
+    stencil.stencil_matvec(*args, table=table)
     assert stencil.LAUNCHES["stencil_window"] == before + 1
 
 
 def test_stencil_wrapper_rejects_bad_inputs(cuda):
-    u, esc, ke, dims = _stencil_inputs((6, 4, 2), torch.float64, cuda, True)
+    (u, esc, ke, dims), table = _stencil_inputs((6, 4, 2), torch.float64,
+                                               cuda, True)
     with pytest.raises(TypeError):
-        stencil.stencil_matvec(u.float(), esc, ke, dims)
+        stencil.stencil_matvec(u.float(), esc, ke, dims, table=table)
     with pytest.raises(ValueError, match="on cpu"):
-        stencil.stencil_matvec(u, esc, ke.cpu(), dims)
+        stencil.stencil_matvec(u, esc, ke.cpu(), dims, table=table)
     with pytest.raises(ValueError, match="contiguous"):
-        stencil.stencil_matvec(u, esc, ke.t(), dims)
+        stencil.stencil_matvec(u, esc, ke.t(), dims, table=table)
     with pytest.raises(ValueError, match="DOFs"):
-        stencil.stencil_matvec(u[3:], esc, ke, dims)
+        stencil.stencil_matvec(u[3:], esc, ke, dims, table=table)
+    before = dict(stencil.LAUNCHES)
+    with pytest.raises(ValueError, match="cell table"):
+        stencil.stencil_matvec(u, esc, ke, dims, kernel="plane")
+    with pytest.raises(ValueError, match="on cpu"):
+        stencil.stencil_matvec(u, esc, ke, dims, table=table.cpu())
+    with pytest.raises(TypeError):
+        stencil.stencil_matvec(u, esc, ke, dims, table=table.float())
+    with pytest.raises(ValueError, match=r"\[5\]"):
+        stencil.stencil_matvec(u, esc, ke, dims, table=table[:4])
+    assert stencil.LAUNCHES == before
 
 
 def test_multigrid_solve_on_cuda_matches_cpu(cuda):
@@ -581,6 +640,100 @@ def test_ell_window_wrapper_raises_on_a_failed_launch(cuda, monkeypatch):
         ell.bell_matvec_window(t["cols2"], t["vals2"], t["wblk"],
                                t["gbounds"], u, pk["S"], pk["kc"])
     assert ell.LAUNCHES == before
+
+
+def _sell_inputs(device, dtype, per_row, n=997, n_cols=4000, seed=3):
+    """Scalar-weight ELL rows of ``per_row`` distinct columns in a band
+    (S = per_row, padded to 8), every eleventh row empty, and the columns
+    of the last rows running past ``n_cols - 300`` (the vector's length in
+    the test below), so some slots lie at or past n_cols."""
+    from topopteval_tpu_torch.ops import ell
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = rows * 4 + np.tile(np.arange(per_row), n) * 3 \
+        + rng.integers(0, 3, rows.size)
+    live = rows % 11 != 5
+    rows, cols = rows[live], np.minimum(cols[live], n_cols - 1)
+    pk = ell.pack_ell_rows(rows, cols, rng.standard_normal(rows.size), n,
+                           n_cols)
+    t = {k: torch.as_tensor(pk[k], device=device)
+         for k in ("cols2", "wblk", "gbounds")}
+    t["vals2"] = torch.as_tensor(pk["vals2"], dtype=dtype, device=device)
+    return pk, t
+
+
+def _sell_launch(t, u, S, kc, n_rows, node_major, warps):
+    """One launch of the sell_window entry point with ``warps`` warps
+    for every 32 rows; returns (error code, output)."""
+    from topopteval_tpu_torch.ops import ell
+    out = torch.full((n_rows, 3) if node_major else (3, n_rows),
+                     float("nan"), dtype=u.dtype, device=u.device)
+    u_cs, u_ns, n_cols = ell._strides(u, node_major)
+    o_cs, o_ns, _ = ell._strides(out, node_major)
+    fn = getattr(ell._library(), "sell_window_f32" if u.dtype ==
+                 torch.float32 else "sell_window_f64")
+    err = fn(t["cols2"].data_ptr(), t["vals2"].data_ptr(),
+             t["wblk"].data_ptr(), u.data_ptr(), out.data_ptr(), S, kc,
+             t["wblk"].shape[0], n_rows, n_cols, u_cs, u_ns, o_cs, o_ns,
+             warps, torch.cuda.current_stream().cuda_stream)
+    return err, out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("per_row", [8, 48], ids=["S8", "S48"])
+@pytest.mark.parametrize("warps", [None, 1, 2, 4, 8])
+def test_sell_window_warps_match_plain_version(cuda, warps, per_row, dtype):
+    """B9b at S 8 (the prolongation's width) and 48 (the restriction's),
+    through the wrapper (its own choice of warps) and with each of the
+    four at the entry point: both layouts, 997 rows (no multiple of 32 or
+    128), a cut window (kc = 1) and columns at or past the vector's end;
+    each repeats its bits."""
+    from topopteval_tpu_torch.ops import ell
+    pk, t = _sell_inputs(cuda, dtype, per_row)
+    assert pk["S"] == per_row
+    args = (t["cols2"], t["vals2"], t["wblk"], t["gbounds"])
+    rng = np.random.default_rng(4)
+    n_cols = pk["n_cols_p"] - 300
+    u = torch.as_tensor(rng.standard_normal((3, n_cols)), dtype=dtype,
+                        device=cuda)
+    wide = torch.zeros((n_cols, 5), dtype=dtype, device=cuda)
+    wide[:, 1:4] = u.t()
+    for kc in (pk["kc"], 1):
+        for vec, kw in ((u, {}),
+                        (wide[:, 1:4], {"node_major": True, "n_rows": 997})):
+            if warps is None:
+                before = ell.LAUNCHES["sell_window"]
+                out = ell.sell_matvec_window(*args, vec, pk["S"], kc, **kw)
+                again = ell.sell_matvec_window(*args, vec, pk["S"], kc,
+                                               **kw)
+                torch.cuda.synchronize()
+                assert ell.LAUNCHES["sell_window"] == before + 2
+            else:
+                rows = kw.get("n_rows", t["wblk"].shape[0] * 128)
+                node_major = kw.get("node_major", False)
+                (e1, out), (e2, again) = (
+                    _sell_launch(t, vec, pk["S"], kc, rows, node_major,
+                                 warps) for _ in range(2))
+                torch.cuda.synchronize()
+                assert e1 == e2 == 0
+            ref = ell.sell_matvec_window_reference(*args, vec, pk["S"], kc,
+                                                   **kw)
+            assert out.shape == ref.shape
+            scale = float(ref.abs().max())
+            assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+            assert torch.equal(out, again)
+    assert ell.sell_warps(pk["S"]) == (1 if per_row == 8 else 8)
+
+
+def test_sell_window_entry_refuses_bad_warps(cuda):
+    """The entry point launches nothing for warps outside 1, 2, 4, 8 and
+    says so (cudaErrorInvalidValue)."""
+    pk, t = _sell_inputs(cuda, torch.float64, 8)
+    u = torch.zeros((3, pk["n_cols_p"]), dtype=torch.float64, device=cuda)
+    for warps in (0, 3, 16):
+        err, out = _sell_launch(t, u, pk["S"], pk["kc"], 997, False, warps)
+        torch.cuda.synchronize()
+        assert err == 1 and bool(torch.isnan(out).all())
 
 
 def test_galerkin_hierarchy_on_cuda_matches_cpu(cuda):

@@ -20,8 +20,16 @@ kernels' order, and held to the plain versions and to the JAX package:
   than a chunk, a coarse-level-like matrix (72 blocks a row) and row
   counts that are not a multiple of the tile; in float32 the order, and
   so every bit, does not depend on the chunk;
-- the A/B tool's ablation edits apply to this tree's source (its tet4
-  and hex8 designs: tests/test_torch_element_designs.py).
+- B9b gives W warps a block of 32 rows, warp w summing slots w, w + W,
+  ... in batches of SELL_SLOTS, the W partial sums added in warp order:
+  the emulated sum, reading u through its strides as the kernel does,
+  against ``sell_matvec_window_reference`` and scipy at S 8 and 48 with
+  every W, empty rows, a window cut to kc = 1, columns at or past the
+  vector's end, 997 rows and both layouts; in float32 the bits do not
+  depend on how the rows are split into blocks, only on S and W;
+- the A/B tool's ablation edits apply to this tree's sources (its tet4
+  and hex8 designs: tests/test_torch_element_designs.py; B3's:
+  tests/test_torch_stencil_designs.py).
 """
 
 import math
@@ -39,6 +47,7 @@ import topopteval_tpu_torch as tt
 from topopteval_tpu_torch import _build
 from topopteval_tpu_torch.ops import bell
 from topopteval_tpu_torch.ops import element_kernels as ek
+from topopteval_tpu_torch.ops import ell
 from topopteval_tpu_torch.ops.elements import QUADRATURE, element_tables
 from topopteval_tpu_torch.tools import kernel_ab
 
@@ -391,6 +400,153 @@ def test_bell_lanes_follow_the_row_length():
 
 
 # ---------------------------------------------------------------------------
+# B9b
+# ---------------------------------------------------------------------------
+
+
+def emulate_sell(pk, w2, u, S, kc, n_rows, node_major, W, block_rows=32):
+    """csrc/ell_apply.cu sell_window in NumPy: blocks of ``block_rows``
+    rows (32 in the kernel), one a lane; warp w of W sums slots w, w + W,
+    ... of its row in batches of SELL_SLOTS (columns outside the window
+    or at or past n_cols add zero); the W sums are added in warp order.
+    ``u`` is read through its strides as the kernel reads it."""
+    cols2 = pk["cols2"]
+    wblk = pk["wblk"]
+    flat = torch.empty(0, dtype=u.dtype).set_(u.untyped_storage()).numpy()
+    offset = u.storage_offset()
+    u_cs, u_ns, n_cols = ell._strides(u, node_major)
+    dt = w2.dtype
+    out = np.zeros((n_rows, 3), dt)
+    for r0 in range(0, n_rows, block_rows):
+        n = np.arange(r0, min(r0 + block_rows, n_rows))
+        t, lane = n // ell.LANES, n % ell.LANES
+        lo = wblk[t].astype(np.int64) * ell.LANES
+        hi = np.minimum(lo + kc * ell.LANES, n_cols)
+        parts = []
+        for w in range(W):
+            acc = np.zeros((n.size, 3), dt)
+            for s0 in range(w, S, W * ell.SELL_SLOTS):
+                for k in range(ell.SELL_SLOTS):
+                    s = s0 + k * W
+                    if s >= S:
+                        continue
+                    c = cols2[t * S + s, lane].astype(np.int64)
+                    wt = w2[t * S + s, lane]
+                    inb = (c >= lo) & (c < hi)
+                    cc = np.where(inb, c, 0)
+                    for a in range(3):
+                        x = np.where(inb, flat[offset + cc * u_ns + a * u_cs],
+                                     0).astype(dt)
+                        acc[:, a] = acc[:, a] + wt * x
+            parts.append(acc)
+        total = parts[0]
+        for v in range(1, W):
+            total = total + parts[v]
+        out[n] = total
+    return out if node_major else out.T.copy()
+
+
+def _sell_pack(per_row, n=997, n_cols=4000, seed=3):
+    """``per_row`` banded columns a row, every eleventh row empty."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = rows * 4 + np.tile(np.arange(per_row), n) * 3 \
+        + rng.integers(0, 3, rows.size)
+    live = rows % 11 != 5
+    rows, cols = rows[live], np.minimum(cols[live], n_cols - 1)
+    w = rng.standard_normal(rows.size)
+    return ell.pack_ell_rows(rows, cols, w, n, n_cols), (rows, cols, w)
+
+
+@pytest.mark.parametrize("node_major", [False, True],
+                         ids=["component_major", "node_major"])
+@pytest.mark.parametrize("cut", [False, True], ids=["packed", "kc1"])
+@pytest.mark.parametrize("per_row", [8, 48], ids=["S8", "S48"])
+def test_sell_warps_reproduce_plain_version(per_row, cut, node_major):
+    pk, (rows, cols, w) = _sell_pack(per_row)
+    S = pk["S"]
+    kc = 1 if cut else pk["kc"]
+    n_cols = pk["n_cols_p"] - 300          # some columns at or past the end
+    rng = np.random.default_rng(5)
+    u_np = rng.standard_normal((3, n_cols))
+    if node_major:                  # a [n, 3] view of a wider buffer
+        wide = torch.zeros((n_cols, 5), dtype=torch.float64)
+        wide[:, 1:4] = torch.from_numpy(u_np.T)
+        u = wide[:, 1:4]
+    else:
+        u = torch.from_numpy(u_np)
+    tens = [torch.from_numpy(pk[k]) for k in ("cols2", "vals2", "wblk",
+                                              "gbounds")]
+    kw = {"node_major": node_major, "n_rows": 997}
+    ref = ell.sell_matvec_window_reference(*tens, u, S, kc, **kw).numpy()
+    scale = np.abs(ref).max()
+    for W in ell.SELL_WARPS:
+        got = emulate_sell(pk, pk["vals2"], u, S, kc, 997, node_major, W)
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= 1e-12 * scale
+    if not cut:                     # scipy on the columns the vector has
+        keep = cols < n_cols
+        P = sp.csr_matrix((w[keep], (rows[keep], cols[keep])),
+                          shape=(997, n_cols))
+        sci = (P @ u_np.T)
+        sci = sci if node_major else sci.T
+        assert np.abs(got - sci).max() <= 1e-12 * scale
+    else:                           # the cut window drops columns
+        full = ell.sell_matvec_window_reference(*tens, u, S, pk["kc"], **kw)
+        assert np.abs(full.numpy() - ref).max() > 0
+    empty = np.arange(997) % 11 == 5
+    assert np.all((ref[empty] if node_major else ref[:, empty]) == 0)
+
+
+def test_sell_order_depends_on_warps_not_on_blocks():
+    """In float32 every bit of the emulated sum is the same for blocks of
+    32, 64 or 128 rows: the order of a row's sum is fixed by S and W."""
+    pk, _ = _sell_pack(48, n=300)
+    w32 = pk["vals2"].astype(np.float32)
+    u = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (3, pk["n_cols_p"])).astype(np.float32))
+    outs = {}
+    for W in (1, 8):
+        runs = [emulate_sell(pk, w32, u, pk["S"], pk["kc"], 300, False, W,
+                             block_rows=r) for r in (32, 64, 128)]
+        for other in runs[1:]:
+            assert np.array_equal(runs[0], other)
+        outs[W] = runs[0]
+    # another W is another order: float32 bits move, the value does not
+    assert not np.array_equal(outs[1], outs[8])
+    assert np.abs(outs[1] - outs[8]).max() <= 1e-5 * np.abs(outs[1]).max()
+
+
+def test_sell_warps_follow_the_slots():
+    assert ell.sell_warps(8) == 1           # the prolongation
+    assert ell.sell_warps(16) == 2
+    assert ell.sell_warps(24) == 4 and ell.sell_warps(32) == 4
+    assert ell.sell_warps(48) == 8          # the restriction
+    assert ell.sell_warps(72) == 8          # two batches a warp
+    for S in range(8, 200, 8):
+        W = ell.sell_warps(S)
+        assert W in ell.SELL_WARPS
+        assert W == ell.SELL_WARPS[-1] or W * ell.SELL_SLOTS >= S
+
+
+def test_sell_wrapper_on_the_cpu_is_the_plain_version():
+    """On a CPU tensor the wrapper returns the plain version's result,
+    bit for bit, and counts no launch (S 48, node-major)."""
+    pk, _ = _sell_pack(48, n=300)
+    tens = [torch.from_numpy(pk[k]) for k in ("cols2", "vals2", "wblk",
+                                              "gbounds")]
+    u = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (pk["n_cols_p"], 3)))
+    ell.reset_launch_counts()
+    kw = {"node_major": True, "n_rows": 300}
+    out = ell.sell_matvec_window(*tens, u, pk["S"], pk["kc"], **kw)
+    assert torch.equal(out, ell.sell_matvec_window_reference(
+        *tens, u, pk["S"], pk["kc"], **kw))
+    assert out.shape == (300, 3)
+    assert ell.LAUNCHES["sell_window"] == 0
+
+
+# ---------------------------------------------------------------------------
 # the build helper and the A/B tool
 # ---------------------------------------------------------------------------
 
@@ -406,11 +562,18 @@ def test_build_names_other_sources_by_their_text(tmp_path):
     assert _build.build([]) == {}      # nothing to build: no nvcc needed
 
 
-def test_ablation_edits_apply_to_this_tree():
-    text = open(os.path.join(_build.CSRC_DIR, "element_apply.cu")).read()
-    for (tree, variant), edits in kernel_ab.ABLATIONS.items():
+@pytest.mark.parametrize("group", ["element", "stencil", "sell"])
+def test_ablation_edits_apply_to_this_tree(group):
+    src = kernel_ab.ABLATED_SOURCE[group]
+    text = open(os.path.join(_build.CSRC_DIR, f"{src}.cu")).read()
+    variants = [v for (tree, v) in kernel_ab.ABLATION_SETS[group]
+                if tree == "current"]
+    assert variants
+    for (tree, variant), edits in kernel_ab.ABLATION_SETS[group].items():
         if tree == "current":
             out = kernel_ab.ablated_source(text, edits)
             assert out != text
     with pytest.raises(ValueError):
         kernel_ab.ablated_source(text, [("no such line", "x")])
+    if group == "stencil":
+        assert set(kernel_ab.STENCIL_TILES) <= set(variants)

@@ -36,15 +36,44 @@
 // The TPU kernel scans each tile's kc-chunk window with lane gathers,
 // because the TPU cannot gather by address.  This card can: the layout is
 // already a sliced ELL format whose consecutive lanes are consecutive
-// addresses, so one thread per row reads its slot's column and values in
-// coalesced 128-lane rows, with no repacking, and gathers u by address.
+// addresses, so a warp reads a slot's columns and values of 32 rows as
+// one coalesced 128-byte run and gathers u by address.
 //
-// Bound (both): memory.  The padded cols2 and values are read once, u once,
-// out written once.  Scale-16 fine operator (222,208 padded rows, S = 16):
-// cols 14.2 MB, values 128 MB float / 256 MB double, so 0.044 / 0.084 ms
-// at 3.35 TB/s; 18 flops per block do not bind.  Summation runs over the
-// slots in order (columns sorted within each row), so the result is the
-// same every run.
+// bell_window: one thread a row, 128 a block, its S slots in order.
+//   Bound: memory.  The real blocks' columns and values are read once, u
+//   once, out written once.  Scale-16 fine operator (222,208 rows, S 16):
+//   0.040 / 0.076 ms float / double at 3.35 TB/s on the real entries;
+//   18 flops per block do not bind.  Slots in order (columns sorted
+//   within each row), so the result is the same every run.
+//
+// sell_window: W warps a block of 32 consecutive rows of a tile (one row
+//   a lane); warp w takes slots w, w + W, w + 2W, ... of the 32 rows and
+//   keeps SLOTS = 8 of them in flight: their 8 column loads, then their 8
+//   gathers of u, then the products in slot order.  The W partial sums of
+//   a row meet in shared memory and are added in warp order 0..W-1, so
+//   the order of the sum is fixed by S and W alone and the result repeats
+//   bit for bit; for W > 1 it is not the serial slot order of the plain
+//   version and of the earlier design, so float32 results differ from
+//   both in the last bits.  W comes from S (ops/ell.sell_warps): enough
+//   warps that each holds at most 8 slots, up to 8 (the restriction, S
+//   48: 8; the prolongation, S 8: 1, which runs the earlier kernel's
+//   one-thread-a-row loop in slot order and keeps its bits).
+//   Bound: memory.  A transfer's real weights and their columns are read
+//   once, u once, out written once (6 flops a weight do not bind): the
+//   scale-16 Galerkin restriction (36,297 rows, S 48, 1.24 M weights)
+//   0.0039 / 0.0063 ms float / double, 0.0051 / 0.0081 on every padded
+//   slot.
+//   The earlier design (one thread a row, 128 a block, the S slots in one
+//   loop: a column load, then the gather that needs it, 48 times in
+//   series) took 0.0286 / 0.0275 ms cold on the restriction (14 / 23 % of
+//   the bound, 1.75x slower than the CSR kernel B5 on the same matrix):
+//   latency-bound, about 9 warps an SM each waiting on 48 round trips.
+//   Result (NVIDIA H100 80GB HBM3 at 700 W, tools/kernel_ab.py in turns
+//   with the earlier design, inputs cold in L2; PERF.md): the restriction
+//   0.0108 / 0.0162 ms (2.6x / 1.7x, 36 / 39 % of the bound), now faster
+//   than B5 (0.0160 / 0.0249); W = 4 within 10 % of W = 8 either way, W =
+//   2 20 % and W = 1 2x slower.  The prolongation (W = 1) keeps the
+//   earlier kernel's loop and its bits: 0.0091 / 0.0116 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,13 +81,16 @@
 namespace {
 
 constexpr int LANES = 128;
+constexpr int ROWS = 32;        // sell_window: rows of a block (one a lane)
+constexpr int SLOTS = 8;        // sell_window: slots a warp keeps in flight
 
-template <typename T, bool BLOCK>
+// B9a: one thread a row, its S slots in order.
+template <typename T>
 __global__ void __launch_bounds__(LANES)
-ell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ vals,
-                  const int* __restrict__ wblk, const T* __restrict__ u,
-                  T* __restrict__ out, int S, int kc, int n_rows, int n_cols,
-                  int64_t u_cs, int64_t u_ns, int64_t o_cs, int64_t o_ns) {
+bell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ vals,
+                   const int* __restrict__ wblk, const T* __restrict__ u,
+                   T* __restrict__ out, int S, int kc, int n_rows, int n_cols,
+                   int64_t u_cs, int64_t u_ns, int64_t o_cs, int64_t o_ns) {
     const int t = blockIdx.x;
     const int l = threadIdx.x;
     const int n = t * LANES + l;
@@ -68,8 +100,7 @@ ell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ vals,
     const int64_t hi = end < (int64_t)n_cols ? end : (int64_t)n_cols;
     const int* __restrict__ c_t = cols2 + (int64_t)t * S * LANES + l;
     const int64_t plane = (int64_t)S * LANES;
-    const T* __restrict__ v_t =
-        vals + (int64_t)t * (BLOCK ? 9 : 1) * plane + l;
+    const T* __restrict__ v_t = vals + (int64_t)t * 9 * plane + l;
     T a0 = T(0), a1 = T(0), a2 = T(0);
     for (int s = 0; s < S; ++s) {
         const int64_t c = c_t[(int64_t)s * LANES];
@@ -81,16 +112,9 @@ ell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ vals,
             z = uc[2 * u_cs];
         }
         const T* __restrict__ v = v_t + (int64_t)s * LANES;
-        if (BLOCK) {
-            a0 += v[0] * x + v[plane] * y + v[2 * plane] * z;
-            a1 += v[3 * plane] * x + v[4 * plane] * y + v[5 * plane] * z;
-            a2 += v[6 * plane] * x + v[7 * plane] * y + v[8 * plane] * z;
-        } else {
-            const T w = v[0];
-            a0 += w * x;
-            a1 += w * y;
-            a2 += w * z;
-        }
+        a0 += v[0] * x + v[plane] * y + v[2 * plane] * z;
+        a1 += v[3 * plane] * x + v[4 * plane] * y + v[5 * plane] * z;
+        a2 += v[6 * plane] * x + v[7 * plane] * y + v[8 * plane] * z;
     }
     T* __restrict__ o = out + (int64_t)n * o_ns;
     o[0] = a0;
@@ -98,18 +122,150 @@ ell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ vals,
     o[2 * o_cs] = a2;
 }
 
-template <typename T, bool BLOCK>
-int launch(const void* cols2, const void* vals, const void* wblk, const void* u,
-           void* out, int S, int kc, int n_tiles, int n_rows, int n_cols,
-           long long u_cs, long long u_ns, long long o_cs, long long o_ns,
-           void* stream) {
+// B9b: W warps for each group of 32 rows (one row a lane), G = 4 / W
+// groups a block (one when W >= 4); warp w of a group sums slots w,
+// w + W, ... of its lane's row, SLOTS of them in flight at a time; the W
+// partial sums of a row meet in shared memory and are added in warp
+// order.  W = 1 is the one-thread-a-row loop of bell_window: the slots in
+// order, one column load and its gather at a time (as many rows in
+// flight as the SM holds threads).
+template <int W>
+__host__ __device__ constexpr int sell_groups() { return W >= 4 ? 1 : 4 / W; }
+
+template <typename T, int W>
+__global__ void __launch_bounds__(W * 32 * sell_groups<W>())
+sell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ w2,
+                   const int* __restrict__ wblk, const T* __restrict__ u,
+                   T* __restrict__ out, int S, int kc, int n_rows, int n_cols,
+                   int64_t u_cs, int64_t u_ns, int64_t o_cs, int64_t o_ns) {
+    constexpr int G = sell_groups<W>();
+    const int warp = (threadIdx.x >> 5) % W, group = (threadIdx.x >> 5) / W;
+    const int lane = threadIdx.x & 31;
+    const int r0 = (blockIdx.x * G + group) * ROWS;
+    const int t = r0 / LANES;
+    const int n = r0 + lane;
+    // groups past the last row (the last block's) read nothing
+    const bool live = r0 < n_rows;
+    const int64_t lo = live ? (int64_t)wblk[t] * LANES : 0;
+    const int64_t end = lo + (int64_t)kc * LANES;
+    const int64_t hi = end < (int64_t)n_cols ? end : (int64_t)n_cols;
+    // slot s of this row sits at [t*S + s][r0 % 128 + lane]
+    const int64_t base = (int64_t)t * S * LANES + (r0 % LANES) + lane;
+    const int* __restrict__ c_t = cols2 + base;
+    const T* __restrict__ w_t = w2 + base;
+    T a0 = T(0), a1 = T(0), a2 = T(0);
+    if (W == 1) {
+        if (n >= n_rows) return;
+        for (int s = 0; s < S; ++s) {
+            const int64_t c = c_t[(int64_t)s * LANES];
+            T x = T(0), y = T(0), z = T(0);
+            if (c >= lo && c < hi) {
+                const T* __restrict__ uc = u + c * u_ns;
+                x = uc[0];
+                y = uc[u_cs];
+                z = uc[2 * u_cs];
+            }
+            const T w = w_t[(int64_t)s * LANES];
+            a0 += w * x;
+            a1 += w * y;
+            a2 += w * z;
+        }
+        T* __restrict__ o = out + (int64_t)n * o_ns;
+        o[0] = a0;
+        o[o_cs] = a1;
+        o[2 * o_cs] = a2;
+        return;
+    }
+    for (int s0 = warp; live && s0 < S; s0 += W * SLOTS) {
+        int64_t c[SLOTS];
+        T w[SLOTS];
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) {
+            const int s = s0 + k * W;
+            c[k] = s < S ? (int64_t)c_t[(int64_t)s * LANES] : (int64_t)-1;
+            w[k] = s < S ? w_t[(int64_t)s * LANES] : T(0);
+        }
+        T x[SLOTS][3];
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) {
+            const bool in = c[k] >= lo && c[k] < hi;
+            const T* __restrict__ uc = u + (in ? c[k] : 0) * u_ns;
+            x[k][0] = in ? uc[0] : T(0);
+            x[k][1] = in ? uc[u_cs] : T(0);
+            x[k][2] = in ? uc[2 * u_cs] : T(0);
+        }
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) {
+            a0 += w[k] * x[k][0];
+            a1 += w[k] * x[k][1];
+            a2 += w[k] * x[k][2];
+        }
+    }
+    __shared__ T part[G][W][3][ROWS];
+    part[group][warp][0][lane] = a0;
+    part[group][warp][1][lane] = a1;
+    part[group][warp][2][lane] = a2;
+    __syncthreads();
+    // warp w adds components w, w + W, ... of its group's 32 rows, warps
+    // in order
+    if (n < n_rows) {
+        for (int a = warp; a < 3; a += W) {
+            T sum = part[group][0][a][lane];
+#pragma unroll
+            for (int v = 1; v < W; ++v) sum += part[group][v][a][lane];
+            out[(int64_t)n * o_ns + a * o_cs] = sum;
+        }
+    }
+}
+
+template <typename T>
+int launch_bell(const void* cols2, const void* vals, const void* wblk,
+                const void* u, void* out, int S, int kc, int n_tiles,
+                int n_rows, int n_cols, long long u_cs, long long u_ns,
+                long long o_cs, long long o_ns, void* stream) {
     if (n_rows <= 0) return 0;
     if (S <= 0 || kc <= 0 || n_rows > n_tiles * LANES)
         return (int)cudaErrorInvalidValue;
     const unsigned blocks = (unsigned)((n_rows + LANES - 1) / LANES);
-    ell_window_kernel<T, BLOCK><<<blocks, LANES, 0, (cudaStream_t)stream>>>(
+    bell_window_kernel<T><<<blocks, LANES, 0, (cudaStream_t)stream>>>(
         (const int*)cols2, (const T*)vals, (const int*)wblk, (const T*)u,
         (T*)out, S, kc, n_rows, n_cols, u_cs, u_ns, o_cs, o_ns);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int W>
+void launch_sell_w(const void* cols2, const void* w2, const void* wblk,
+                   const void* u, void* out, int S, int kc, int n_rows,
+                   int n_cols, long long u_cs, long long u_ns,
+                   long long o_cs, long long o_ns, cudaStream_t stream) {
+    constexpr int rows = ROWS * sell_groups<W>();
+    const unsigned blocks = (unsigned)((n_rows + rows - 1) / rows);
+    sell_window_kernel<T, W><<<blocks, W * 32 * sell_groups<W>(), 0,
+                               stream>>>(
+        (const int*)cols2, (const T*)w2, (const int*)wblk, (const T*)u,
+        (T*)out, S, kc, n_rows, n_cols, u_cs, u_ns, o_cs, o_ns);
+}
+
+template <typename T>
+int launch_sell(const void* cols2, const void* w2, const void* wblk,
+                const void* u, void* out, int S, int kc, int n_tiles,
+                int n_rows, int n_cols, long long u_cs, long long u_ns,
+                long long o_cs, long long o_ns, int warps, void* stream) {
+    if (n_rows <= 0) return 0;
+    if (S <= 0 || kc <= 0 || n_rows > n_tiles * LANES)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (warps) {
+        case 1: launch_sell_w<T, 1>(cols2, w2, wblk, u, out, S, kc, n_rows,
+                                    n_cols, u_cs, u_ns, o_cs, o_ns, st); break;
+        case 2: launch_sell_w<T, 2>(cols2, w2, wblk, u, out, S, kc, n_rows,
+                                    n_cols, u_cs, u_ns, o_cs, o_ns, st); break;
+        case 4: launch_sell_w<T, 4>(cols2, w2, wblk, u, out, S, kc, n_rows,
+                                    n_cols, u_cs, u_ns, o_cs, o_ns, st); break;
+        case 8: launch_sell_w<T, 8>(cols2, w2, wblk, u, out, S, kc, n_rows,
+                                    n_cols, u_cs, u_ns, o_cs, o_ns, st); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
     return (int)cudaGetLastError();
 }
 
@@ -117,25 +273,43 @@ int launch(const void* cols2, const void* vals, const void* wblk, const void* u,
 
 // Plain C interface, bound with ctypes in ops/ell.py.  All pointers are
 // device pointers.  Each entry point returns cudaGetLastError() after its
-// launch, 0 when n_rows is 0 (nothing launched).
+// launch, 0 when n_rows is 0 (nothing launched).  sell_window takes its
+// warps a block (1, 2, 4 or 8; ops/ell.sell_warps) last before the stream.
 extern "C" {
 
-#define ELL_ENTRY(NAME, T, BLOCK)                                              \
-    int NAME(const void* cols2, const void* vals, const void* wblk,            \
-             const void* u, void* out, int S, int kc, int n_tiles, int n_rows, \
-             int n_cols, long long u_cs, long long u_ns, long long o_cs,       \
-             long long o_ns, void* stream) {                                   \
-        return launch<T, BLOCK>(cols2, vals, wblk, u, out, S, kc, n_tiles,     \
-                                n_rows, n_cols, u_cs, u_ns, o_cs, o_ns,        \
-                                stream);                                       \
-    }
+int bell_window_f32(const void* cols2, const void* vals, const void* wblk,
+                    const void* u, void* out, int S, int kc, int n_tiles,
+                    int n_rows, int n_cols, long long u_cs, long long u_ns,
+                    long long o_cs, long long o_ns, void* stream) {
+    return launch_bell<float>(cols2, vals, wblk, u, out, S, kc, n_tiles,
+                              n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, stream);
+}
 
-ELL_ENTRY(bell_window_f32, float, true)
-ELL_ENTRY(bell_window_f64, double, true)
-ELL_ENTRY(sell_window_f32, float, false)
-ELL_ENTRY(sell_window_f64, double, false)
+int bell_window_f64(const void* cols2, const void* vals, const void* wblk,
+                    const void* u, void* out, int S, int kc, int n_tiles,
+                    int n_rows, int n_cols, long long u_cs, long long u_ns,
+                    long long o_cs, long long o_ns, void* stream) {
+    return launch_bell<double>(cols2, vals, wblk, u, out, S, kc, n_tiles,
+                               n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, stream);
+}
 
-#undef ELL_ENTRY
+int sell_window_f32(const void* cols2, const void* w2, const void* wblk,
+                    const void* u, void* out, int S, int kc, int n_tiles,
+                    int n_rows, int n_cols, long long u_cs, long long u_ns,
+                    long long o_cs, long long o_ns, int warps, void* stream) {
+    return launch_sell<float>(cols2, w2, wblk, u, out, S, kc, n_tiles,
+                              n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, warps,
+                              stream);
+}
+
+int sell_window_f64(const void* cols2, const void* w2, const void* wblk,
+                    const void* u, void* out, int S, int kc, int n_tiles,
+                    int n_rows, int n_cols, long long u_cs, long long u_ns,
+                    long long o_cs, long long o_ns, int warps, void* stream) {
+    return launch_sell<double>(cols2, w2, wblk, u, out, S, kc, n_tiles,
+                               n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, warps,
+                               stream);
+}
 
 const char* ell_apply_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);

@@ -21,7 +21,7 @@ import torch
 
 from ..mesh import resolve_device
 from ..grid import _TET_SPLIT
-from ..ops.stencil import CORNER_OFFSETS, stencil_matvec
+from ..ops.stencil import CORNER_OFFSETS, cell_table, stencil_matvec
 
 
 def _reference_tet_gradients(dx: float, dy: float, dz: float):
@@ -61,9 +61,12 @@ class StructuredStiffnessOperator:
         self.free_mask = free_mask    # [ndof] 1.0 free / 0.0 fixed
         self.escale = escale          # [nz, ny, nx] or None
         self.dims = dims              # (nx, ny, nz) cells
-        #: the hex stiffness as the stencil kernels take it
+        #: the hex stiffness (the window kernel and the plain version) and
+        #: the six tets' cell table (the plane kernel), in the working dtype
         self.ke = torch.as_tensor(self._hex_ke(), dtype=free_mask.dtype,
                                   device=free_mask.device)
+        self.table = cell_table(g, vol, lam, mu, free_mask.dtype,
+                                free_mask.device)
 
     @staticmethod
     def build(nx: int, ny: int, nz: int,
@@ -114,7 +117,8 @@ class StructuredStiffnessOperator:
 
     def matvec_raw(self, u: torch.Tensor) -> torch.Tensor:
         """K @ u without BC masking: the fused stencil of ops/stencil.py."""
-        return stencil_matvec(u.contiguous(), self.escale, self.ke, self.dims)
+        return stencil_matvec(u.contiguous(), self.escale, self.ke, self.dims,
+                              table=self.table)
 
     def matvec(self, u: torch.Tensor) -> torch.Tensor:
         """Constrained operator A'(u) = m*A(m*u) + (1-m)*u."""

@@ -53,11 +53,26 @@ ABLATE_MODES = ("full", "noskip", "nogather", "nofinal", "empty")
 
 LANES = 128
 GROUP = 8          # pack_ell_rows pads S to a multiple of this
+#: sell_window: slots a warp keeps in flight, and the warps a block may
+#: have (csrc/ell_apply.cu SLOTS and its instantiations)
+SELL_SLOTS = 8
+SELL_WARPS = (1, 2, 4, 8)
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def sell_warps(S: int) -> int:
+    """Warps a block of ``sell_window`` for rows of ``S`` slots: the
+    fewest of ``SELL_WARPS`` that leave each warp at most ``SELL_SLOTS``
+    slots, else the most (8 for the restriction's S 48, 1 for the
+    prolongation's S 8)."""
+    for w in SELL_WARPS:
+        if w * SELL_SLOTS >= S:
+            return w
+    return SELL_WARPS[-1]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -154,7 +169,9 @@ def _library() -> ctypes.CDLL:
         for suffix in _SUFFIX.values():
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                           + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+                           + [ctypes.c_longlong] * 4
+                           + [ctypes.c_int] * (name == "sell_window")
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
     lib.ell_apply_error_string.argtypes = [ctypes.c_int]
     lib.ell_apply_error_string.restype = ctypes.c_char_p
@@ -218,10 +235,11 @@ def _apply(name: str, cols2, vals, wblk, u, S: int, kc: int,
     o_cs, o_ns, _ = _strides(out, node_major)
     lib = _library()
     stream = torch.cuda.current_stream(u.device).cuda_stream
+    extra = (sell_warps(S),) if name == "sell_window" else ()
     err = getattr(lib, f"{name}_{_SUFFIX[u.dtype]}")(
         cols2.data_ptr(), vals.data_ptr(), wblk.data_ptr(), u.data_ptr(),
         out.data_ptr(), S, kc, wblk.shape[0], rows, n_cols, u_cs, u_ns,
-        o_cs, o_ns, stream)
+        o_cs, o_ns, *extra, stream)
     if err != 0:
         msg = lib.ell_apply_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
@@ -251,7 +269,8 @@ def sell_matvec_window(cols2: torch.Tensor, w2: torch.Tensor,
                        node_major: bool = False,
                        n_rows: Optional[int] = None) -> torch.Tensor:
     """Scalar-weight ELL apply (the transfers P and P^T), in the layouts of
-    :func:`bell_matvec_window`."""
+    :func:`bell_matvec_window`; the kernel takes :func:`sell_warps` of S
+    warps for every 32 rows."""
     del gbounds
     return _apply("sell_window", cols2, w2, wblk, u, S, kc, node_major,
                   n_rows)

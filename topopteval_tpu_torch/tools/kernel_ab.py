@@ -1,10 +1,11 @@
-"""A/B timing of the element applies, B1 ``tet4_apply`` and B2
-``hex8_apply`` (and B7 ``tet10_apply``, whose kernel shares their tile
-skeleton), against another tree's build of the same kernels, on one card,
-in turns.
+"""A/B timing of redesigned kernels against another tree's build of the
+same kernels, on one card, in turns: the element applies B1
+``tet4_apply`` and B2 ``hex8_apply`` (and B7 ``tet10_apply``, whose
+kernel shares their tile skeleton), the structured stencil apply B3
+``stencil_plane`` and the scan-window transfer B9b ``sell_window``.
 
     python -m topopteval_tpu_torch.tools.kernel_ab --baseline DIR
-        [--only tet4|hex8|tet10]
+        [--only tet4|hex8|tet10|stencil|sell]
 
 ``DIR`` is a checkout of another commit of this repository (for example
 ``git archive`` of the parent, unpacked).  Its
@@ -43,6 +44,35 @@ block-Jacobi CG (chip_smoke.py phase 4), the SIMP Hex8 fixture in fp32
 (phase 3), and the device time of an MG-PCG iteration of the Galerkin
 route at scale 16 in fp32 (phase 10f), under ``torch.profiler``.
 
+B3 and B9b (``--only stencil``, ``--only sell``): the baseline's
+``csrc/stencil_apply.cu`` and ``csrc/ell_apply.cu`` are bound under the
+C interfaces they had before their redesign,
+
+    stencil_plane_f{32,64}(u, esc, ke, y, nx, ny, nz, stream)
+    sell_window_f{32,64}(cols2, w2, wblk, u, out, S, kc, n_tiles, n_rows,
+                         n_cols, u_cs, u_ns, o_cs, o_ns, stream)
+
+and timed in turns with this tree's wrappers: B3 on the 50x16x4,
+100x32x8 and 200x64x16-cell boxes (the 19,200-, 153,600- and
+1,228,800-tet beams), uniform and with a per-cell scale, in float32 and
+float64; B9b on the first restriction and prolongation of the Galerkin
+route at scale 16 (node-major, as the V-cycle calls them), cold in L2
+(each call reads its own copy of the inputs, the copies spanning twice
+the 50 MB L2, as chip_smoke.py phase 10e), beside the CSR kernel B5 on
+the same triplets.  Every output is held against the plain version.
+Ablations (``ABLATIONS``): B3 ``nocompute`` (the staged corner values go
+to the face buffers with no arithmetic) and ``nostore`` of both trees;
+B9b ``nogather`` of both trees (each slot reads the row of u at its own
+row number, or the last row, still after its column load).  Sweeps: B3's z chunk (the
+runtime argument of this tree's kernel) and its tile (``tile32x4``,
+``tile32x8``, ``tile64x4`` variants of its 16 x 8); B9b's warps a block
+(1, 2, 4, 8).
+Then the device ms per MG-PCG iteration with either tree's kernel in the
+solver (``fem/structured.stencil_matvec``, ``fem/multigrid.
+sell_matvec_window``), in turns: the stencil route at scale 16 in
+float64 (phase 7g) and the Galerkin route at scale 16 in float32 (phase
+10f).
+
 Prints one line per reading and ``AB OK`` last.  Needs a card and nvcc.
 """
 
@@ -50,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -111,6 +142,70 @@ ABLATIONS: Dict[Tuple[str, str], List[Tuple[str, str]]] = {
         "static constexpr int K = 8, TPE = 8, TILE = 16, SMALL_TILE = 8;",
         "static constexpr int K = 8, TPE = 8, TILE = 32, SMALL_TILE = 8;")],
 }
+#: the same for stencil_apply.cu (B3) and ell_apply.cu (B9b)
+STENCIL_ABLATIONS: Dict[Tuple[str, str], List[Tuple[str, str]]] = {
+    ("baseline", "nocompute"): [(
+        """    node_apply<T>(d, e, valid, ke_s, acc);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) y[3 * n + a] = acc[a];""",
+        """    for (int a = 0; a < 3; ++a) {
+        acc[a] = e[a] + e[a + 4] + ke_s[a];
+        for (int i = 0; i < 27; ++i) acc[a] += d[i / 9][(i / 3) % 3][i % 3][a];
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) y[3 * n + a] = acc[a];""")],
+    ("baseline", "nostore"): [(
+        """    node_apply<T>(d, e, valid, ke_s, acc);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) y[3 * n + a] = acc[a];""",
+        """    node_apply<T>(d, e, valid, ke_s, acc);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) if (acc[a] == T(1234567)) y[3 * n + a] = acc[a];""")],
+    ("current", "nocompute"): [(
+        """            cell_forces<T>(p0, p0 + RY * RX, e * vlam, e * vmu, ih,
+                           fbot + cell, ftop + cell);""",
+        """            for (int i = 0; i < 12; ++i) {
+                fbot[i * PT + cell] = p0[i] + e;
+                ftop[i * PT + cell] = p0[RY * RX + i];
+            }""")],
+    ("current", "nostore"): [(
+        "                    y[3 * n + a] = acc + ptop[a];",
+        """                    { const T v_ = acc + ptop[a];
+                      if (v_ == T(1234567)) y[3 * n + a] = v_; }""")],
+    # the tile sweep
+    ("current", "tile32x4"): [("constexpr int CX = 16, CY = 8;",
+                               "constexpr int CX = 32, CY = 4;")],
+    ("current", "tile32x8"): [("constexpr int CX = 16, CY = 8;",
+                               "constexpr int CX = 32, CY = 8;")],
+    ("current", "tile64x4"): [("constexpr int CX = 16, CY = 8;",
+                               "constexpr int CX = 64, CY = 4;")],
+}
+SELL_ABLATIONS: Dict[Tuple[str, str], List[Tuple[str, str]]] = {
+    ("baseline", "nogather"): [(
+        "const T* __restrict__ uc = u + c * u_ns;",
+        "const T* __restrict__ uc = u + ((int64_t)min(n, n_cols - 1) "
+        "+ (c >> 62)) * u_ns;")],
+    ("current", "nogather"): [(
+        "const T* __restrict__ uc = u + (in ? c[k] : 0) * u_ns;",
+        "const T* __restrict__ uc = u + (in ? (int64_t)min(n, n_cols - 1) "
+        "+ (c[k] >> 62) : 0) * u_ns;")],
+}
+#: the sources the ablations of each kernel edit
+ABLATED_SOURCE = {"element": "element_apply", "stencil": "stencil_apply",
+                  "sell": "ell_apply"}
+ABLATION_SETS = {"element": ABLATIONS, "stencil": STENCIL_ABLATIONS,
+                 "sell": SELL_ABLATIONS}
+#: B3's tile variants, for the sweep
+STENCIL_TILES = ("tile32x4", "tile32x8", "tile64x4")
+#: B3's z chunks swept at the largest box (node planes a block; 0: the
+#: kernel's own choice)
+STENCIL_CHUNKS = (0, 1, 2, 3, 4, 6, 9, 17)
+#: B3's boxes in cells: the 19,200-, 153,600- and 1,228,800-tet beams
+STENCIL_BOXES = ((50, 16, 4), (100, 32, 8), (200, 64, 16))
+#: the beam whose MG-PCG iterations are timed (1,228,800 tets)
+MG_SCALE = 16
+#: H100 SXM L2 cache, which the cold timings of B9b exceed
+L2_BYTES = 50 * 2 ** 20
 #: the tile each sweep variant adds, by kernel
 SWEEP = {"tet4_apply": ("tile256", 256), "hex8_apply": ("tile32", 32)}
 
@@ -148,6 +243,32 @@ def _bind(lib: ctypes.CDLL, current: bool) -> None:
                 fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
                                                        ctypes.c_void_p]
             fn.restype = ctypes.c_int
+
+
+def _bind_stencil(lib: ctypes.CDLL, current: bool) -> None:
+    """stencil_plane under this tree's interface (the wrapper's) or the
+    baseline's (u, esc, ke, y, nx, ny, nz, stream)."""
+    from ..ops import stencil as st
+    for sfx in ("f32", "f64"):
+        fn = getattr(lib, f"stencil_plane_{sfx}")
+        fn.argtypes = (getattr(st._library(), f"stencil_plane_{sfx}").argtypes
+                       if current else
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+
+def _bind_sell(lib: ctypes.CDLL, current: bool) -> None:
+    """sell_window under this tree's interface (the wrapper's) or the
+    baseline's, which has no warps argument."""
+    from ..ops import ell
+    for sfx in ("f32", "f64"):
+        fn = getattr(lib, f"sell_window_{sfx}")
+        fn.argtypes = (getattr(ell._library(), f"sell_window_{sfx}").argtypes
+                       if current else
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -201,9 +322,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", required=True,
                     help="checkout of the tree to compare with")
-    ap.add_argument("--only", choices=("tet4", "hex8", "tet10"),
+    ap.add_argument("--only", choices=("tet4", "hex8", "tet10", "stencil",
+                                       "sell"),
                     help="one of the kernels (tet4 and hex8 with their "
-                         "solves)")
+                         "solves, stencil and sell with their MG-PCG "
+                         "iterations)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
@@ -214,24 +337,33 @@ def main(argv=None) -> int:
                          text=True).stdout.strip()
     print(f"[ab] device {smi} | torch {torch.__version__}", flush=True)
 
+    groups = [g for g, names in (("element", ("tet4", "hex8", "tet10")),
+                                 ("stencil", ("stencil",)),
+                                 ("sell", ("sell",)))
+              if args.only is None or args.only in names]
+
     # -- build: this tree, the baseline and the ablation variants ----------
-    texts = {}
-    for tree, path in (("baseline", os.path.join(
-            args.baseline, "topopteval_tpu_torch", "csrc",
-            "element_apply.cu")),
-            ("current", os.path.join(_build.CSRC_DIR, "element_apply.cu"))):
-        with open(path) as fh:
-            texts[tree] = fh.read()
     var_dir = os.path.join(_build.BUILD_DIR, "ablate")
     os.makedirs(var_dir, exist_ok=True)
-    paths = {"base_element_apply": os.path.join(
-        args.baseline, "topopteval_tpu_torch", "csrc", "element_apply.cu")}
-    for (tree, variant), edits in ABLATIONS.items():
-        path = os.path.join(var_dir, f"{tree}_{variant}.cu")
-        with open(path, "w") as fh:
-            fh.write(ablated_source(texts[tree], edits))
-        paths[f"{tree}_{variant}"] = path
-    seconds = _build.build(["element_apply"], paths)
+    paths, sources = {}, []
+    for group in groups:
+        src = ABLATED_SOURCE[group]
+        sources.append(src)
+        texts = {}
+        for tree, path in (("baseline", os.path.join(
+                args.baseline, "topopteval_tpu_torch", "csrc", f"{src}.cu")),
+                ("current", os.path.join(_build.CSRC_DIR, f"{src}.cu"))):
+            with open(path) as fh:
+                texts[tree] = fh.read()
+        paths[f"base_{src}"] = os.path.join(
+            args.baseline, "topopteval_tpu_torch", "csrc", f"{src}.cu")
+        prefix = "" if group == "element" else f"{group}_"
+        for (tree, variant), edits in ABLATION_SETS[group].items():
+            path = os.path.join(var_dir, f"{prefix}{tree}_{variant}.cu")
+            with open(path, "w") as fh:
+                fh.write(ablated_source(texts[tree], edits))
+            paths[f"{prefix}{tree}_{variant}"] = path
+    seconds = _build.build(sources, paths)
     print("[ab] build " + json.dumps({k: round(v, 1)
                                       for k, v in seconds.items()}),
           flush=True)
@@ -242,14 +374,26 @@ def main(argv=None) -> int:
     libs = {}
     for name, path in paths.items():
         libs[name] = _build.load(name, path)
-        _bind(libs[name], current=name.startswith("current_"))
+        if name.startswith(("stencil_", "base_stencil")):
+            _bind_stencil(libs[name], current=name.startswith(
+                "stencil_current_"))
+        elif name.startswith(("sell_", "base_ell")):
+            _bind_sell(libs[name], current=name.startswith("sell_current_"))
+        else:
+            _bind(libs[name], current=name.startswith("current_"))
 
-    kernels = (["tet4_apply", "hex8_apply", "tet10_apply"]
-               if args.only is None else [f"{args.only}_apply"])
-    for name in kernels:
-        element_phase(name, libs, dev)
-    if args.only != "tet10":
-        solve_phase(libs, dev, [n for n in kernels if n != "tet10_apply"])
+    if "element" in groups:
+        kernels = (["tet4_apply", "hex8_apply", "tet10_apply"]
+                   if args.only is None else [f"{args.only}_apply"])
+        for name in kernels:
+            element_phase(name, libs, dev)
+        if args.only != "tet10":
+            solve_phase(libs, dev,
+                        [n for n in kernels if n != "tet10_apply"])
+    if "stencil" in groups:
+        stencil_phase(libs, dev)
+    if "sell" in groups:
+        sell_phase(libs, dev)
     print("AB OK")
     return 0
 
@@ -363,7 +507,6 @@ def solve_phase(libs, dev, names):
     import time
 
     import topopteval_tpu_torch as tt
-    from .. import api as tt_api
     from ..fem import operator as fop
     from ..fem.solvers import cg
 
@@ -377,31 +520,17 @@ def solve_phase(libs, dev, names):
     def use(tree):
         fop._APPLY.update(kernels[tree])
 
-    lam0, mu0 = tt.lame_parameters(1.0, 0.3)
     cg_cfg = tt.SolverConfig(method="cg", preconditioner="block_diagonal",
                              tolerance=1e-10, max_iterations=20000,
                              verbose=False)
 
-    def problem(mesh, dtype, density=None):
-        p = tt.setup_problem(mesh, dtype=dtype)
-        if density is None:
-            tt.assemble_stiffness_matrix(p, lam0, mu0)
-        else:
-            tt.assemble_stiffness_matrix_simp(
-                p, tt.create_simp_material_model(1.0, 0.3, 1e-8, 3.0),
-                density)
-        tt.apply_fixed_boundary(p, tt.nodes_at_plane(p.mesh, 0, 0.0))
-        tt.apply_force(p, tt.nodes_at_plane(p.mesh, 0, 60.0),
-                       [0.0, 0.0, -1.0])
-        return p
-
     cases = []
     if "tet4_apply" in names:
-        cases.append(("beam8_fp64_bj", problem(tt.generate_grid_tet(
+        cases.append(("beam8_fp64_bj", _problem(tt.generate_grid_tet(
             100, 32, 8, (0, 0, 0), (60.0, 20.0, 4.0)), torch.float64)))
     if "hex8_apply" in names:
         path = os.path.join(DATA, "beam_vfrac_04_Raw.vtu")
-        cases.append(("simp_hex8_fp32_bj", problem(
+        cases.append(("simp_hex8_fp32_bj", _problem(
             tt.import_mesh(path), torch.float32,
             tt.extract_cell_density(path))))
     try:
@@ -427,15 +556,7 @@ def solve_phase(libs, dev, names):
             return
         # the Galerkin route's MG-PCG iteration at scale 16 (fp32), B1 on
         # its fine level: device ms per iteration under the profiler
-        os.environ["TOPOPT_MG"] = "galerkin"
-        try:
-            mesh = tt.generate_grid_tet(200, 64, 16, (0, 0, 0),
-                                        (60.0, 20.0, 4.0))
-            mesh.structured_info = None
-            p16 = problem(mesh, torch.float32)
-            op, M = tt_api._get_multigrid(p16)
-        finally:
-            os.environ.pop("TOPOPT_MG", None)
+        p16, op, M = _galerkin_beam()
         b = torch.as_tensor(p16.f, dtype=torch.float32, device=dev) \
             * op.free_mask
         iters = 20
@@ -466,6 +587,358 @@ def solve_phase(libs, dev, names):
               flush=True)
     finally:
         use("current")
+
+
+# ---------------------------------------------------------------------------
+# B3 and B9b
+# ---------------------------------------------------------------------------
+
+
+def _sfx(dtype) -> str:
+    return "f32" if dtype == torch.float32 else "f64"
+
+
+def stencil_call(lib, u, esc, coef, dims, zn=None):
+    """A call of ``stencil_plane`` in ``lib``: the baseline's (``zn``
+    None; ``coef`` is Ke) or this tree's with z chunk ``zn`` (``coef`` is
+    the cell table)."""
+    fn = getattr(lib, f"stencil_plane_{_sfx(u.dtype)}")
+    nx, ny, nz = dims
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        y = torch.empty_like(u)
+        extra = () if zn is None else (zn,)
+        _raise_on(fn(u.data_ptr(), None if esc is None else esc.data_ptr(),
+                     coef.data_ptr(), y.data_ptr(), nx, ny, nz, *extra,
+                     stream), "stencil_plane")
+        return y
+    return call
+
+
+def sell_call(lib, cols2, w2, wblk, u, S, kc, n_rows, warps=None):
+    """A node-major call of ``sell_window`` in ``lib``: the baseline's
+    (``warps`` None) or this tree's with ``warps`` warps a block."""
+    fn = getattr(lib, f"sell_window_{_sfx(u.dtype)}")
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((n_rows, 3), dtype=u.dtype, device=u.device)
+        extra = () if warps is None else (warps,)
+        _raise_on(fn(cols2.data_ptr(), w2.data_ptr(), wblk.data_ptr(),
+                     u.data_ptr(), out.data_ptr(), S, kc, wblk.shape[0],
+                     n_rows, u.shape[0], u.stride(1), u.stride(0),
+                     out.stride(1), out.stride(0), *extra, stream),
+                  "sell_window")
+        return out
+    return call
+
+
+def _check_against(out, ref, dtype, what) -> float:
+    err = _err(out, ref)
+    if not err <= TOLERANCE[dtype]:
+        raise AssertionError(f"{what}: rel_err {err:.3e}")
+    return err
+
+
+def _beam(scale):
+    import topopteval_tpu_torch as tt
+    return tt.generate_grid_tet(25 * scale // 2, 4 * scale, scale,
+                                (0, 0, 0), (60.0, 20.0, 4.0))
+
+
+def _problem(mesh, dtype, density=None):
+    """The cantilever of chip_smoke.py on ``mesh``: uniform E = 1, nu =
+    0.3 (or the SIMP model on ``density``), x = 0 clamped, a unit load
+    on x = 60."""
+    import topopteval_tpu_torch as tt
+    lam0, mu0 = tt.lame_parameters(1.0, 0.3)
+    p = tt.setup_problem(mesh, dtype=dtype)
+    if density is None:
+        tt.assemble_stiffness_matrix(p, lam0, mu0)
+    else:
+        tt.assemble_stiffness_matrix_simp(
+            p, tt.create_simp_material_model(1.0, 0.3, 1e-8, 3.0), density)
+    tt.apply_fixed_boundary(p, tt.nodes_at_plane(p.mesh, 0, 0.0))
+    tt.apply_force(p, tt.nodes_at_plane(p.mesh, 0, 60.0), [0.0, 0.0, -1.0])
+    return p
+
+
+def _galerkin_beam(scale=MG_SCALE):
+    """(problem, operator, V-cycle) of the beam of ``scale`` from a mesh
+    without ``structured_info``, through TOPOPT_MG=galerkin, float32."""
+    from .. import api as tt_api
+    mesh = _beam(scale)
+    mesh.structured_info = None
+    p = _problem(mesh, torch.float32)
+    os.environ["TOPOPT_MG"] = "galerkin"
+    try:
+        op, M = tt_api._get_multigrid(p)
+    finally:
+        os.environ.pop("TOPOPT_MG", None)
+    return p, op, M
+
+
+def mgpcg_iteration(op, M, b, iters=20):
+    """(wall ms, device ms, {kernel key: device ms}) per MG-PCG iteration
+    (``cg`` with tolerance 0), the device time under ``torch.profiler``."""
+    import time
+
+    from ..fem.solvers import cg
+    cg(op, b, M=M, tol=0.0, maxiter=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cg(op, b, M=M, tol=0.0, maxiter=iters)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / iters
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cg(op, b, M=M, tol=0.0, maxiter=iters)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    per = {e.key: e.self_device_time_total / 1e3 / iters for e in rows}
+    return wall, sum(per.values()), per
+
+
+def stencil_phase(libs, dev):
+    """B3: this tree against the baseline at STENCIL_BOXES, uniform and
+    SIMP, float32 and float64, with the ablations and the tile sweep (and
+    the z chunk sweep at the last box, uniform); then the stencil route's
+    MG-PCG iteration on the beam of MG_SCALE (float64) with either tree's
+    B3."""
+    import topopteval_tpu_torch as tt
+    from ..fem import structured as fst
+    from ..ops import stencil as st
+    lam0, mu0 = tt.lame_parameters(1.0, 0.3)
+    base = libs["base_stencil_apply"]
+    for dims in STENCIL_BOXES:
+        nx, ny, nz = dims
+        cells = nx * ny * nz
+        for dtype in (torch.float32, torch.float64):
+            for simp in (False, True):
+                rng = np.random.default_rng(7)
+                op = tt.StructuredStiffnessOperator.build(
+                    nx, ny, nz, (0, 0, 0), (60.0, 20.0, 4.0), lam0, mu0,
+                    escale=rng.uniform(0.1, 1.0, (nz, ny, nx)) if simp
+                    else None, dtype=dtype, device=dev)
+                u = torch.as_tensor(rng.standard_normal(op.n_dofs),
+                                    dtype=dtype, device=dev)
+                esc = op.escale
+                ref = st.stencil_matvec_reference(u, esc, op.ke, dims)
+                cur = (lambda: st.stencil_matvec(    # noqa: E731
+                    u, esc, op.ke, dims, table=op.table))
+                calls = {"baseline": stencil_call(base, u, esc, op.ke, dims),
+                         "current": cur}
+                o1, o2, ob = cur(), cur(), calls["baseline"]()
+                torch.cuda.synchronize()
+                errs = {"baseline": _check_against(ob, ref, dtype, "B3 base"),
+                        "current": _check_against(o1, ref, dtype, "B3"),
+                        "repeat_identical": bool(torch.equal(o1, o2))}
+                if not errs["repeat_identical"]:
+                    raise AssertionError(f"B3 {dims} {dtype}: repeat")
+                for (tree, variant) in STENCIL_ABLATIONS:
+                    lib = libs[f"stencil_{tree}_{variant}"]
+                    coef = op.table if tree == "current" else op.ke
+                    name = f"{tree}_{variant}"
+                    calls[name] = stencil_call(
+                        lib, u, esc, coef, dims,
+                        0 if tree == "current" else None)
+                    if variant in STENCIL_TILES:
+                        errs[variant] = _check_against(
+                            calls[name](), ref, dtype, f"B3 {variant}")
+                if dims == STENCIL_BOXES[-1] and not simp:
+                    for zn in STENCIL_CHUNKS[1:]:
+                        calls[f"current_zn{zn}"] = stencil_call(
+                            st._library(), u, esc, op.table, dims, zn)
+                item = u.element_size()
+                b_ms, b_by = bound_ms(
+                    (2 * u.numel() + (cells if simp else 0)) * item,
+                    372 * cells, dtype)
+                times = ab_times(calls, dev)
+                chunk = st._library().stencil_plane_chunk(
+                    nx, ny, nz, dtype == torch.float64)
+                print(f"[ab] stencil_plane {dims} {str(dtype)[6:]} "
+                      f"esc={'random' if simp else 'none'} chunk={chunk} "
+                      f"bound_ms={b_ms} ({b_by}) " + json.dumps(times)
+                      + f" rel_err={json.dumps(errs)} speedup="
+                      f"{times['baseline'] / times['current']:.3f}",
+                      flush=True)
+                del op, u, ref, calls
+                torch.cuda.empty_cache()
+
+    # the stencil route's MG-PCG iteration, float64
+    from .. import api as tt_api
+    p16 = _problem(_beam(MG_SCALE), torch.float64)
+    op, M = tt_api._get_multigrid(p16)
+    b = torch.as_tensor(p16.f, dtype=torch.float64, device=dev) \
+        * op.free_mask
+    kernels = {"current": fst.stencil_matvec}
+
+    def base_matvec(u, esc, ke, dims, kernel=None, *, table=None):
+        return stencil_call(base, u, esc, ke, tuple(dims))()
+
+    kernels["baseline"] = base_matvec
+    per = {}
+    try:
+        for tree in ("baseline", "current", "current", "baseline"):
+            fst.stencil_matvec = kernels[tree]
+            wall, dev_ms, parts = mgpcg_iteration(op, M, b)
+            b3 = sum(v for k, v in parts.items()
+                     if "stencil_plane" in k)
+            per.setdefault(tree, []).append(
+                {"wall_ms_per_iter": wall, "device_ms_per_iter": dev_ms,
+                 "b3_device_ms_per_iter": b3})
+    finally:
+        fst.stencil_matvec = kernels["current"]
+    print(f"[ab] mgpcg_iteration stencil_beam{MG_SCALE}_fp64 "
+          + json.dumps(per), flush=True)
+
+
+def _ell_triplets(table):
+    """(rows, cols, weights) of an ``EllTable``'s slots with a nonzero
+    weight, on the host."""
+    Nt = table.wblk.shape[0]
+    cols = table.cols2.reshape(Nt, table.S, 128).permute(0, 2, 1) \
+        .reshape(-1, table.S)[:table.n_rows].cpu().numpy()
+    w = table.w2.reshape(Nt, table.S, 128).permute(0, 2, 1) \
+        .reshape(-1, table.S)[:table.n_rows].double().cpu().numpy()
+    live = w != 0
+    rows = np.repeat(np.arange(table.n_rows), table.S).reshape(cols.shape)
+    return rows[live], cols[live], w[live]
+
+
+def sell_phase(libs, dev):
+    """B9b: this tree against the baseline on the Galerkin route's first
+    restriction and prolongation on the beam of MG_SCALE, cold, float32
+    and float64, beside B5 on the same triplets, with the ablation and
+    the warps sweep; then that route's MG-PCG iteration (float32) with
+    either tree's B9b."""
+    import itertools
+
+    from ..fem import multigrid as fmg
+    from ..ops import bell as bo
+    from ..ops import ell
+    base = libs["base_ell_apply"]
+    p16, op, M = _galerkin_beam()
+    tr = M.levels[0].transfer
+    rng = np.random.default_rng(11)
+    for label, T, n_cols in (("restrict0", tr.R, tr.P.n_rows),
+                             ("prolong0", tr.P, tr.R.n_rows)):
+        rows_t, cols_t, w_t = _ell_triplets(T)
+        for dtype in (torch.float32, torch.float64):
+            w2 = T.w2.to(dtype)
+            u = torch.as_tensor(rng.standard_normal((n_cols, 3)),
+                                dtype=dtype, device=dev)
+            args = (T.cols2, w2, T.wblk, T.gbounds, u, T.S, T.kc)
+            kw = {"node_major": True, "n_rows": T.n_rows}
+            ref = ell.sell_matvec_window_reference(*args, **kw)
+            # copies of the inputs spanning twice the L2: no call finds
+            # its operands left there by the one before
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in (T.cols2, w2, T.wblk, u)) \
+                + T.n_rows * 3 * u.element_size()
+            n_copies = max(1, -(-2 * L2_BYTES // nbytes))
+            copies = [(T.cols2, w2, T.wblk, u)] + [
+                tuple(t.clone() for t in (T.cols2, w2, T.wblk, u))
+                for _ in range(n_copies - 1)]
+            inner = n_copies * -(-10 // n_copies)
+
+            def cold(make):
+                fns = [make(*c) for c in copies]
+                nxt = itertools.cycle(fns).__next__
+                return lambda: nxt()()
+
+            calls = {
+                "baseline": cold(lambda c, w, wb, uu: sell_call(
+                    base, c, w, wb, uu, T.S, T.kc, T.n_rows)),
+                "current": cold(lambda c, w, wb, uu: (
+                    lambda: ell.sell_matvec_window(
+                        c, w, wb, T.gbounds, uu, T.S, T.kc, **kw)))}
+            for tree in ("baseline", "current"):
+                calls[f"{tree}_nogather"] = cold(
+                    lambda c, w, wb, uu, _l=libs[f"sell_{tree}_nogather"],
+                    _w=(None if tree == "baseline" else ell.sell_warps(T.S)):
+                    sell_call(_l, c, w, wb, uu, T.S, T.kc, T.n_rows, _w))
+            for W in ell.SELL_WARPS:
+                if W != ell.sell_warps(T.S):
+                    calls[f"current_w{W}"] = cold(
+                        lambda c, w, wb, uu, _W=W: sell_call(
+                            ell._library(), c, w, wb, uu, T.S, T.kc,
+                            T.n_rows, _W))
+            A = bo.pack_csr(rows_t, cols_t, w_t, T.n_rows, n_cols, dtype,
+                            dev)
+            u_cm = u.t().contiguous()
+            b5_copies = [(A, u_cm)] + [
+                (dataclasses.replace(A, indptr=A.indptr.clone(),
+                                     cols=A.cols.clone(),
+                                     vals=A.vals.clone()), u_cm.clone())
+                for _ in range(n_copies - 1)]
+            b5_fns = [(lambda _A=Aj, _u=uj: bo.sell_matvec(_u, _A))
+                      for Aj, uj in b5_copies]
+            calls["b5"] = itertools.cycle(b5_fns).__next__
+            o1 = calls["current"]()
+            o2 = ell.sell_matvec_window(*args, **kw)
+            o3 = ell.sell_matvec_window(*args, **kw)
+            ob = sell_call(base, T.cols2, w2, T.wblk, u, T.S, T.kc,
+                           T.n_rows)()
+            torch.cuda.synchronize()
+            errs = {"baseline": _check_against(ob, ref, dtype, "B9b base"),
+                    "current": _check_against(o1, ref, dtype, "B9b"),
+                    "repeat_identical": bool(torch.equal(o2, o3)),
+                    "b5": _check_against(bo.sell_matvec(u_cm, A).t(), ref,
+                                         dtype, "B5")}
+            if ell.sell_warps(T.S) == 1:    # the earlier kernel's order
+                errs["bitwise_baseline"] = bool(torch.equal(o1, ob))
+            for W in ell.SELL_WARPS:
+                errs[f"w{W}"] = _check_against(sell_call(
+                    ell._library(), T.cols2, w2, T.wblk, u, T.S, T.kc,
+                    T.n_rows, W)(), ref, dtype, f"B9b W={W}")
+            if not errs["repeat_identical"]:
+                raise AssertionError(f"B9b {label} {dtype}: repeat")
+            item = u.element_size()
+            real = len(rows_t) * (4 + item) + 3 * (n_cols + T.n_rows) * item
+            b_ms, b_by = bound_ms(real, 6 * len(rows_t), dtype)
+            calls["b5"] = (lambda _n=calls["b5"]: _n()())
+            got = {n: [] for n in calls}
+            for n in list(calls) + list(calls)[::-1]:
+                got[n].append(time_ms(calls[n], dev, inner=inner))
+            times = {n: float(np.mean(v)) for n, v in got.items()} | {
+                f"{n}_turns": v for n, v in got.items()}
+            print(f"[ab] sell_window {label} {str(dtype)[6:]} rows="
+                  f"{T.n_rows} S={T.S} kc={T.kc} W={ell.sell_warps(T.S)} "
+                  f"nnz={len(rows_t)} copies={n_copies} bound_ms={b_ms} "
+                  f"({b_by}) " + json.dumps(times)
+                  + f" rel_err={json.dumps(errs)} speedup="
+                  f"{times['baseline'] / times['current']:.3f} (all cold)",
+                  flush=True)
+            del copies, calls, A, b5_copies, b5_fns
+            torch.cuda.empty_cache()
+
+    # the Galerkin route's MG-PCG iteration at scale 16, float32
+    b = torch.as_tensor(p16.f, dtype=torch.float32, device=dev) \
+        * op.free_mask
+    kernels = {"current": fmg.sell_matvec_window}
+
+    def base_sell(cols2, w2, wblk, gbounds, u, S, kc, *, node_major=False,
+                  n_rows=None):
+        return sell_call(base, cols2, w2, wblk, u, S, kc, n_rows)()
+
+    kernels["baseline"] = base_sell
+    per = {}
+    try:
+        for tree in ("baseline", "current", "current", "baseline"):
+            fmg.sell_matvec_window = kernels[tree]
+            wall, dev_ms, parts = mgpcg_iteration(op, M, b)
+            b9b = sum(v for k, v in parts.items() if "sell_window" in k)
+            per.setdefault(tree, []).append(
+                {"wall_ms_per_iter": wall, "device_ms_per_iter": dev_ms,
+                 "b9b_device_ms_per_iter": b9b})
+    finally:
+        fmg.sell_matvec_window = kernels["current"]
+    print(f"[ab] mgpcg_iteration galerkin_beam{MG_SCALE}_fp32 "
+          + json.dumps(per), flush=True)
 
 
 if __name__ == "__main__":
