@@ -36,14 +36,16 @@ few) and each failing the script on a failed check:
    the opt-in ``window`` kernel, a per-hex SIMP scale-4 beam against the
    host direct oracle, and scale 16 in float32 through the refinement
    route; the stencil kernels' times beside their bound, the plain
-   version and a two-``conv3d`` library yardstick; and where one MG-PCG
-   iteration at scale 16 spends its time;
+   version and a two-``conv3d`` library yardstick (the plane kernel also
+   at the two coarser smoothed levels, each yardstick on its own Ke); and
+   where one MG-PCG iteration at scale 16 spends its time;
 8. the block-ELL multigrid route on meshes without ``structured_info``:
    the 1,228,800-tet beam written to .vtu and read back, solved in float32
    (hi/lo system operator, bf16 V-cycle copies, float64 refinement)
    against data/oracle_energies.json; both block-ELL kernels against their
    plain versions at that beam's fine-operator and transfer shapes, on a
-   coarse Galerkin level and on a random matrix with empty rows; the lo
+   coarse Galerkin level and on a random matrix with empty rows, each
+   launched twice and bit for bit the same; the lo
    plane's effect; the scale-8 beam uniform (float64, through the disk
    cache and back) and with the benchmark SIMP density (float64, the
    skeleton from the in-process cache; its energy held to twice the
@@ -77,12 +79,13 @@ few) and each failing the script on a failed check:
    against the direct solve and the CPU iteration count of both packages;
    the 1,228,800-tet beam written to .vtu and read back, solved in float32
    through float64 refinement against data/oracle_energies.json, with the
-   build seconds by phase; the kernels at that route's level-1 operator
-   and transfers; their times beside their bound, the plain version, one
-   cuSPARSE call and B4/B5 on the same matrix (each also held to its own
-   plain version there: B4 at the level-1 operator's 58 blocks a row);
-   and where one MG-PCG iteration of that route spends its time, B1 and
-   the ``RowScatterPlan`` sum on its fine level among the parts;
+   build seconds by phase; the kernels at that route's level-1 and level-2
+   operators and transfers; their times beside their bound, the plain
+   version, one cuSPARSE call and B4/B5 on the same matrix (each also held
+   to its own plain version there: B4 at the level-1 operator's 58 blocks
+   a row); and where one MG-PCG iteration of that route spends its time,
+   B1 and the ``RowScatterPlan`` sum on its fine level among the parts,
+   with B9a's calls per iteration by level;
 11. T1, the Ke-formulation probe (tools/ke_probe.py, counterpart of
    tools/tpu_ke_probe.py) run as a user runs it at the scale-16 beam in
    float32 and float64, then its two kernels (``tet4_ke_cse``,
@@ -446,17 +449,22 @@ def galerkin_phase(env):
     check(len(M_g.levels) >= 2, "the scale-16 hierarchy has no Galerkin "
           "level above its coarsest")
     L1 = M_g.levels[1].op
+    # B9a runs on every Galerkin level above the coarsest: levels 1 and 2
+    # at scale 16 (36,297 and 5,225 nodes, S 72)
+    g_levels = {f"level{i}": M_g.levels[i].op for i in (1, 2)
+                if i < len(M_g.levels) and hasattr(M_g.levels[i].op, "cols2")}
     P0, R0 = M_g.levels[0].transfer.P, M_g.levels[0].transfer.R
-    l1_trip = L1.triplets()
+    trips = {k: L.triplets() for k, L in g_levels.items()}
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[1]
-        t = {"cols2": L1.cols2, "wblk": L1.wblk, "gbounds": L1.gbounds,
-             "vals2": L1.vals2.to(dtype)}
-        n = L1.n_nodes
-        u = torch.as_tensor(rng.standard_normal((n, 3)), dtype=dtype,
-                            device=dev)
-        parity("bell_window", f"level1_{dname}", t, L1.S, L1.kc, u,
-               (*l1_trip, n, n), n, node_major=True, n_rows=n)
+        for key, L in g_levels.items():
+            t = {"cols2": L.cols2, "wblk": L.wblk, "gbounds": L.gbounds,
+                 "vals2": L.vals2.to(dtype)}
+            n = L.n_nodes
+            u = torch.as_tensor(rng.standard_normal((n, 3)), dtype=dtype,
+                                device=dev)
+            parity("bell_window", f"{key}_{dname}", t, L.S, L.kc, u,
+                   (*trips[key], n, n), n, node_major=True, n_rows=n)
         for label, T, n_cols in (("prolong0", P0, R0.n_rows),
                                  ("restrict0", R0, P0.n_rows)):
             t = {"cols2": T.cols2, "wblk": T.wblk, "gbounds": T.gbounds,
@@ -509,7 +517,10 @@ def galerkin_phase(env):
         return tensors if i == 0 else tuple(t.clone() for t in tensors)
 
     timed = {"bell_window": ["fine16_float32", "fine16_float64",
-                             "fine16_nodemajor_float32", "level1_float32"],
+                             "fine16_nodemajor_float32", "level1_float32",
+                             "level1_float64"]
+             + [f"{k}_{d}" for k in g_levels if k != "level1"
+                for d in ("float32", "float64")],
              "sell_window": ["restrict0_float32", "prolong0_float32",
                              "restrict0_float64", "prolong0_float64"]}
     for name, labels in timed.items():
@@ -617,13 +628,33 @@ def galerkin_phase(env):
     sync()
     el.reset_launch_counts()
     ek.reset_launch_counts()
-    t = time.perf_counter()
-    cg(op_g, b, M=M_g, tol=0.0, maxiter=iters)
-    sync()
-    wall_ms = 1e3 * (time.perf_counter() - t) / iters
+    # B9a's calls by level, told apart by their row counts
+    from topopteval_tpu_torch.fem import ell as fe
+    level_of = {L.n_nodes: k for k, L in g_levels.items()}
+    by_level = {}
+    window = fe.bell_matvec_window
+
+    def counted(*args, **kw):
+        key = level_of.get(kw.get("n_rows"), "other")
+        by_level[key] = by_level.get(key, 0) + 1
+        return window(*args, **kw)
+
+    fe.bell_matvec_window = counted
+    try:
+        t = time.perf_counter()
+        cg(op_g, b, M=M_g, tol=0.0, maxiter=iters)
+        sync()
+        wall_ms = 1e3 * (time.perf_counter() - t) / iters
+    finally:
+        fe.bell_matvec_window = window
     # the start costs what an iteration costs: one matvec, one V-cycle
     per = {k: v / (iters + 1) for k, v in (*el.LAUNCHES.items(),
                                            *ek.LAUNCHES.items()) if v}
+    print("[breakdown] galerkin_beam16_fp32 bell_window calls per "
+          "iteration by level: " + json.dumps(
+              {k: round(v / (iters + 1), 2) for k, v in by_level.items()})
+          + " (levels: " + json.dumps({k: [L.n_nodes, L.S] for k, L in
+                                       g_levels.items()}) + ")", flush=True)
     # B1 on the fine level and the RowScatterPlan sum of its forces, the
     # two halves of the fine matvec (phase 6 prints the same pair at
     # scale 8)
@@ -1653,6 +1684,43 @@ def main() -> int:
                 else:
                     rec.update({f"{key}_fp64": val
                                 for key, val in vals.items()})
+        # the coarser smoothed levels of the scale-16 hierarchy (B3 only),
+        # each with the two-conv yardstick on its own Ke
+        for dims in ((100, 32, 8), (50, 16, 4)) * (name == "stencil_plane"):
+            cells = dims[0] * dims[1] * dims[2]
+            for dtype in (torch.float32, torch.float64):
+                dname = str(dtype).split(".")[1]
+                args, table = stencil_args(dims, dtype, False)
+                conv_w[dtype] = conv_weights(args[2].cpu().numpy(), dtype)
+                plain = st.stencil_matvec_reference(*args)
+                lib_err = float((two_conv(*args) - plain).abs().max()
+                                / plain.abs().max())
+                check(lib_err <= 10 * TOLERANCE[dname],
+                      f"two-conv yardstick at {dims} is off by "
+                      f"{lib_err:.3e} {dname}")
+                b_ms, b_by = bound_ms(
+                    2 * args[0].numel() * args[0].element_size(),
+                    FLOPS_PER_ELEMENT[name] * cells, dtype)
+                vals = {
+                    "ms": time_ms(lambda: st.stencil_matvec(
+                        *args, kernel=kernel, table=table), graph=True),
+                    "plain_ms": time_ms(
+                        lambda: st.stencil_matvec_reference(*args),
+                        reps=11, inner=2),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": time_ms(lambda: two_conv(*args), reps=11,
+                                          inner=4),
+                    "eager_ms": time_ms(lambda: st.stencil_matvec(
+                        *args, kernel=kernel, table=table)),
+                }
+                print(f"[time] {name} {dname} dims={dims} esc=none "
+                      + " ".join(f"{key}={val}" for key, val in vals.items())
+                      + f" library_rel_err={lib_err:.2e}", flush=True)
+                sfx = "x".join(map(str, dims)) + (
+                    "" if dtype == torch.float32 else "_fp64")
+                rec.update({f"{key}_{sfx}": val for key, val in vals.items()})
+            for dtype in (torch.float32, torch.float64):
+                conv_w[dtype] = conv_weights(ke16, dtype)
         records.append(rec)
 
     # 7g. where one MG-PCG iteration at scale 16 spends its time
@@ -1815,15 +1883,17 @@ def main() -> int:
             bell_inputs[(name, label)] = (A, lo, u)
             before = bo.LAUNCHES[name]
             if name == "bell_matvec":
-                out = bo.bell_matvec(u, A, lo)
+                out, again = (bo.bell_matvec(u, A, lo) for _ in range(2))
                 torch.cuda.synchronize()
                 ref = bo.bell_matvec_reference(u, A, lo)
             else:
-                out = bo.sell_matvec(u, A)
+                out, again = (bo.sell_matvec(u, A) for _ in range(2))
                 torch.cuda.synchronize()
                 ref = bo.sell_matvec_reference(u, A)
-            check(bo.LAUNCHES[name] == before + 1,
-                  f"{name} did not count its launch")
+            check(bo.LAUNCHES[name] == before + 2,
+                  f"{name} did not count its launches")
+            check(bool(torch.equal(out, again)),
+                  f"{name} {label}: a repeat differs")
             check(bool(torch.isfinite(out).all()), f"{name} {label} not finite")
             empty = A.indptr[1:] == A.indptr[:-1]
             check(bool((out[:, empty] == 0).all()),
@@ -1832,7 +1902,10 @@ def main() -> int:
             scale = float(ref.abs().max())
             tol = TOLERANCE[str(vdt).split(".")[1]]
             bell_errs[(name, label)] = err
+            lanes = (bo.bell_lanes if name == "bell_matvec"
+                     else bo.sell_lanes)(A.n_rows, A.nnz)
             print(f"[parity] {name} {label} rows={A.n_rows} nnz={A.nnz} "
+                  f"lanes={lanes} repeat_identical=True "
                   f"empty_rows={int(empty.sum())} max_abs_err={err:.3e} "
                   f"max|plain|={scale:.3e} rel={err / scale:.3e} "
                   f"(tol {tol:.0e})", flush=True)

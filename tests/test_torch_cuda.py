@@ -642,11 +642,13 @@ def test_ell_window_wrapper_raises_on_a_failed_launch(cuda, monkeypatch):
     assert ell.LAUNCHES == before
 
 
-def _sell_inputs(device, dtype, per_row, n=997, n_cols=4000, seed=3):
-    """Scalar-weight ELL rows of ``per_row`` distinct columns in a band
-    (S = per_row, padded to 8), every eleventh row empty, and the columns
-    of the last rows running past ``n_cols - 300`` (the vector's length in
-    the test below), so some slots lie at or past n_cols."""
+def _sell_inputs(device, dtype, per_row, n=997, n_cols=4000, seed=3,
+                 block=False):
+    """Scalar-weight (or 3x3-block) ELL rows of ``per_row`` distinct
+    columns in a band (S = per_row, padded to 8), every eleventh row
+    empty, and the columns of the last rows running past ``n_cols - 300``
+    (the vector's length in the tests below), so some slots lie at or
+    past n_cols."""
     from topopteval_tpu_torch.ops import ell
     rng = np.random.default_rng(seed)
     rows = np.repeat(np.arange(n), per_row)
@@ -654,7 +656,8 @@ def _sell_inputs(device, dtype, per_row, n=997, n_cols=4000, seed=3):
         + rng.integers(0, 3, rows.size)
     live = rows % 11 != 5
     rows, cols = rows[live], np.minimum(cols[live], n_cols - 1)
-    pk = ell.pack_ell_rows(rows, cols, rng.standard_normal(rows.size), n,
+    shape = (rows.size, 3, 3) if block else (rows.size,)
+    pk = ell.pack_ell_rows(rows, cols, rng.standard_normal(shape), n,
                            n_cols)
     t = {k: torch.as_tensor(pk[k], device=device)
          for k in ("cols2", "wblk", "gbounds")}
@@ -662,16 +665,17 @@ def _sell_inputs(device, dtype, per_row, n=997, n_cols=4000, seed=3):
     return pk, t
 
 
-def _sell_launch(t, u, S, kc, n_rows, node_major, warps):
-    """One launch of the sell_window entry point with ``warps`` warps
-    for every 32 rows; returns (error code, output)."""
+def _sell_launch(t, u, S, kc, n_rows, node_major, warps,
+                 name="sell_window"):
+    """One launch of the sell_window (or ``name``) entry point with
+    ``warps`` warps for every 32 rows; returns (error code, output)."""
     from topopteval_tpu_torch.ops import ell
     out = torch.full((n_rows, 3) if node_major else (3, n_rows),
                      float("nan"), dtype=u.dtype, device=u.device)
     u_cs, u_ns, n_cols = ell._strides(u, node_major)
     o_cs, o_ns, _ = ell._strides(out, node_major)
-    fn = getattr(ell._library(), "sell_window_f32" if u.dtype ==
-                 torch.float32 else "sell_window_f64")
+    fn = getattr(ell._library(), f"{name}_f32" if u.dtype ==
+                 torch.float32 else f"{name}_f64")
     err = fn(t["cols2"].data_ptr(), t["vals2"].data_ptr(),
              t["wblk"].data_ptr(), u.data_ptr(), out.data_ptr(), S, kc,
              t["wblk"].shape[0], n_rows, n_cols, u_cs, u_ns, o_cs, o_ns,
@@ -726,14 +730,63 @@ def test_sell_window_warps_match_plain_version(cuda, warps, per_row, dtype):
 
 
 def test_sell_window_entry_refuses_bad_warps(cuda):
-    """The entry point launches nothing for warps outside 1, 2, 4, 8 and
-    says so (cudaErrorInvalidValue)."""
-    pk, t = _sell_inputs(cuda, torch.float64, 8)
-    u = torch.zeros((3, pk["n_cols_p"]), dtype=torch.float64, device=cuda)
-    for warps in (0, 3, 16):
-        err, out = _sell_launch(t, u, pk["S"], pk["kc"], 997, False, warps)
-        torch.cuda.synchronize()
-        assert err == 1 and bool(torch.isnan(out).all())
+    """The entry points launch nothing for warps outside 1, 2, 4, 8, 16
+    and say so (cudaErrorInvalidValue)."""
+    for name, block in (("sell_window", False), ("bell_window", True)):
+        pk, t = _sell_inputs(cuda, torch.float64, 8, block=block)
+        u = torch.zeros((3, pk["n_cols_p"]), dtype=torch.float64,
+                        device=cuda)
+        for warps in (0, 3, 32):
+            err, out = _sell_launch(t, u, pk["S"], pk["kc"], 997, False,
+                                    warps, name)
+            torch.cuda.synchronize()
+            assert err == 1 and bool(torch.isnan(out).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("per_row", [8, 16, 72], ids=["S8", "S16", "S72"])
+@pytest.mark.parametrize("warps", [None, 1, 2, 4, 8, 16])
+def test_bell_window_warps_match_plain_version(cuda, warps, per_row, dtype):
+    """B9a at S 8, 16 and 72 (the Galerkin levels' width: no multiple of
+    8 W for W 4 or 8), through the wrapper (its own choice of warps) and
+    with each warp count at the entry point: both layouts, 997 rows, a
+    cut window (kc = 1) and columns at or past the vector's end; each
+    repeats its bits."""
+    from topopteval_tpu_torch.ops import ell
+    pk, t = _sell_inputs(cuda, dtype, per_row, block=True)
+    assert pk["S"] == per_row
+    args = (t["cols2"], t["vals2"], t["wblk"], t["gbounds"])
+    rng = np.random.default_rng(5)
+    n_cols = pk["n_cols_p"] - 300
+    u = torch.as_tensor(rng.standard_normal((3, n_cols)), dtype=dtype,
+                        device=cuda)
+    wide = torch.zeros((n_cols, 5), dtype=dtype, device=cuda)
+    wide[:, 1:4] = u.t()
+    for kc in (pk["kc"], 1):
+        for vec, kw in ((u, {}),
+                        (wide[:, 1:4], {"node_major": True, "n_rows": 997})):
+            if warps is None:
+                before = ell.LAUNCHES["bell_window"]
+                out = ell.bell_matvec_window(*args, vec, pk["S"], kc, **kw)
+                again = ell.bell_matvec_window(*args, vec, pk["S"], kc,
+                                               **kw)
+                torch.cuda.synchronize()
+                assert ell.LAUNCHES["bell_window"] == before + 2
+            else:
+                rows = kw.get("n_rows", t["wblk"].shape[0] * 128)
+                node_major = kw.get("node_major", False)
+                (e1, out), (e2, again) = (
+                    _sell_launch(t, vec, pk["S"], kc, rows, node_major,
+                                 warps, "bell_window") for _ in range(2))
+                torch.cuda.synchronize()
+                assert e1 == e2 == 0
+            ref = ell.bell_matvec_window_reference(*args, vec, pk["S"], kc,
+                                                   **kw)
+            assert out.shape == ref.shape
+            scale = float(ref.abs().max())
+            assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+            assert torch.equal(out, again)
+    assert ell.window_warps(pk["S"], 997) == {8: 1, 16: 2, 72: 16}[per_row]
 
 
 def test_galerkin_hierarchy_on_cuda_matches_cpu(cuda):
@@ -932,15 +985,20 @@ def test_tet10_apply_follows_a_conn_written_in_place(cuda):
     assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
 
-def _bell_shape(shape, device, vals_dtype, seed=0):
-    """Row-compressed 3x3-block matrices: every fifth row empty, rows of
-    700 blocks (more than a chunk of 512), a coarse level's 72 blocks a
-    row, and 14 a row over a row count that no tile divides."""
+def _bell_shape(shape, device, vals_dtype, seed=0, block=True):
+    """Row-compressed 3x3-block (or scalar-weight) matrices: every fifth
+    row empty, rows of 700 blocks (more than a chunk of 512) or 2,500
+    weights (more than a chunk of 2,048), a coarse level's 72 blocks a
+    row, 14 a row over a row count that no tile divides, and the
+    transfers' ~34 and ~6 weights a row."""
     from topopteval_tpu_torch.ops import bell
     n, per_row, n_cols = {"empty_rows": (1000, 10, 900),
                           "long_rows": (45, 700, 2000),
+                          "long_weights": (45, 2500, 3000),
                           "coarse72": (700, 72, 700),
-                          "ragged": (3001, 14, 3001)}[shape]
+                          "ragged": (3001, 14, 3001),
+                          "restrict34": (2000, 34, 12000),
+                          "prolong6": (3001, 6, 500)}[shape]
     rng = np.random.default_rng(seed)
     counts = np.full(n, per_row)
     if shape == "empty_rows":
@@ -950,8 +1008,8 @@ def _bell_shape(shape, device, vals_dtype, seed=0):
     first = np.arange(n) * n_cols // n + rng.integers(0, 50, n)
     cols = (np.repeat(first, counts) + np.arange(rows.size)
             - np.repeat(np.cumsum(counts) - counts, counts)) % n_cols
-    A = bell.pack_csr(rows, cols, rng.standard_normal((rows.size, 3, 3)), n,
-                      n_cols, vals_dtype, device)
+    data = rng.standard_normal((rows.size, 3, 3) if block else rows.size)
+    A = bell.pack_csr(rows, cols, data, n, n_cols, vals_dtype, device)
     return A, rng
 
 
@@ -972,6 +1030,47 @@ def test_bell_matvec_subwarps_match_plain_version(cuda, case, shape):
     torch.cuda.synchronize()
     ref = bell.bell_matvec_reference(u, A, lo)
     empty = A.indptr[1:] == A.indptr[:-1]
+    assert bool((out[:, empty] == 0).all())
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL[vec] * scale
+    assert torch.equal(out, again)          # bit-identical launch to launch
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("shape", ["empty_rows", "long_weights",
+                                   "restrict34", "prolong6"])
+@pytest.mark.parametrize("case", ["f32", "f32_bf16", "f64"])
+def test_sell_matvec_lanes_match_plain_version(cuda, case, shape, lanes):
+    """B5 through the wrapper (its own lanes, sell_lanes) and with each
+    lane count at the entry point, on rows that are empty, longer than a
+    staged chunk, and the transfers' widths; each repeats its bits."""
+    from topopteval_tpu_torch.ops import bell
+    vec = torch.float64 if case == "f64" else torch.float32
+    vals = {"f32_bf16": torch.bfloat16, "f64": torch.float64}.get(
+        case, torch.float32)
+    T, rng = _bell_shape(shape, cuda, vals, block=False)
+    u = torch.as_tensor(rng.standard_normal((3, T.n_cols)), dtype=vec,
+                        device=cuda)
+    if lanes is None:
+        before = bell.LAUNCHES["sell_matvec"]
+        out, again = bell.sell_matvec(u, T), bell.sell_matvec(u, T)
+        torch.cuda.synchronize()
+        assert bell.LAUNCHES["sell_matvec"] == before + 2
+    else:
+        fn = getattr(bell._library(), f"sell_matvec_{case}")
+
+        def launch():
+            o = torch.full((3, T.n_rows), float("nan"), dtype=vec,
+                           device=cuda)
+            assert fn(T.indptr.data_ptr(), T.cols.data_ptr(),
+                      T.vals.data_ptr(), u.data_ptr(), o.data_ptr(),
+                      T.n_rows, T.n_cols, lanes,
+                      torch.cuda.current_stream().cuda_stream) == 0
+            return o
+        out, again = launch(), launch()
+        torch.cuda.synchronize()
+    ref = bell.sell_matvec_reference(u, T)
+    empty = T.indptr[1:] == T.indptr[:-1]
     assert bool((out[:, empty] == 0).all())
     scale = float(ref.abs().max())
     assert float((out - ref).abs().max()) <= TOL[vec] * scale

@@ -562,7 +562,7 @@ def test_build_names_other_sources_by_their_text(tmp_path):
     assert _build.build([]) == {}      # nothing to build: no nvcc needed
 
 
-@pytest.mark.parametrize("group", ["element", "stencil", "sell"])
+@pytest.mark.parametrize("group", ["element", "stencil", "csr", "window"])
 def test_ablation_edits_apply_to_this_tree(group):
     src = kernel_ab.ABLATED_SOURCE[group]
     text = open(os.path.join(_build.CSRC_DIR, f"{src}.cu")).read()

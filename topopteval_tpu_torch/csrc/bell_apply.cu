@@ -62,9 +62,30 @@
 // 1.5x, 2.4x); 0.039 ms fp32 at the Galerkin route's level 1 (58 blocks a
 // row), 1.75x.
 //
-// sell_matvec: one thread per row computing its three outputs, columns
-// walked in sorted order (a fixed summation order).  Neighbouring threads
-// read neighbouring rows; a row's weights come in through L1.
+// sell_matvec: the same kernel over a body of one weight an entry (the
+// three outputs of a row share it), chunks of 2,048 entries, and each
+// lane takes its entries eight at a time: their eight columns from shared
+// memory, then their 24 gathers of u, then the sums in order.  G from
+// the mean row length (sell_lanes in ops/bell.py: 1 below 8 weights a
+// row, as on the prolongation's ~5.6, else bell_matvec's rule: 8 on the
+// restriction's ~34, so a lane sums its four or five weights in one
+// batch).  G = 1 is the earlier design's loop, kept with
+// its bits: one thread a row reading cols and w straight from device
+// memory, in entry order; on short rows staging costs more than it
+// saves.  The earlier design ran the restriction (36,352 rows, 1,240,625
+// weights) as a chain of 34 column loads and the gathers they feed a
+// thread, neighbouring threads' rows ~136 B apart: 0.0121 ms bf16 and
+// 0.0182 fp64 warm, 26 / 34 % of the bound (NVIDIA H100 80GB HBM3 at
+// 700 W).  At G > 1 the order is the butterfly's, fixed by the matrix
+// alone.  Result, timed in turns with the earlier design
+// (tools/kernel_ab.py, same card, inputs cold in L2): the restriction
+// 0.0164 -> 0.0112 ms bf16, 0.0299 -> 0.0178 fp64 (28 / 36 % of the
+// bound; warm 0.0091 / 0.0140); G = 4 and 16 20-36 % slower than 8; the
+// prolongation at G = 1 unchanged (0.0080 / 0.0123), its bits the same.
+
+// Both kernels are csr_matvec_kernel over a body (Block: 9 values an
+// entry, with the optional lo plane; Weight: one value), as the element
+// applies share one tile kernel (element_apply.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,9 +95,7 @@
 
 namespace {
 
-constexpr int THREADS = 128;       // sell_matvec: one thread per row
-constexpr int BELL_THREADS = 256;  // bell_matvec: G lanes per row
-constexpr int BELL_CHUNK = 512;    // blocks of a row tile staged at a time
+constexpr int BELL_THREADS = 256;  // threads of a block: G lanes a row
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
@@ -113,78 +132,143 @@ __device__ __forceinline__ int stage(V* __restrict__ dst,
     return shift;
 }
 
+// What one entry of a row holds and how it adds into the row's three
+// sums (x, y, z: the gathered u[:, c]).
+//   Block: a 3x3 block, row-major, out[a] += sum_b v[3a+b] u[b]
+//   Weight: one weight, out[a] += w u[a]
+// CHUNK: entries of a row tile staged at a time.
+// ILP: entries a lane takes at a time (their columns, then their gathers,
+// then the sums in order), to keep several gathers in flight.
+template <typename V_>
+struct Block {
+    using V = V_;
+    static constexpr int NV = 9, CHUNK = 512, ILP = 1;
+    template <typename T>
+    __device__ __forceinline__ static void add(const V* v, T x, T y, T z,
+                                               T& a0, T& a1, T& a2) {
+        a0 += T(widen(v[0])) * x + T(widen(v[1])) * y + T(widen(v[2])) * z;
+        a1 += T(widen(v[3])) * x + T(widen(v[4])) * y + T(widen(v[5])) * z;
+        a2 += T(widen(v[6])) * x + T(widen(v[7])) * y + T(widen(v[8])) * z;
+    }
+};
+
+template <typename V_>
+struct Weight {
+    using V = V_;
+    static constexpr int NV = 1, CHUNK = 2048, ILP = 8;
+    template <typename T>
+    __device__ __forceinline__ static void add(const V* v, T x, T y, T z,
+                                               T& a0, T& a1, T& a2) {
+        const T w = T(widen(v[0]));
+        a0 += w * x;
+        a1 += w * y;
+        a2 += w * z;
+    }
+};
+
 // out[:, r] for the G-lane sub-warps of a block, one row each: a tile of
-// R = BELL_THREADS / G consecutive rows.  Their blocks are one contiguous
-// run [indptr[r0], indptr[r0 + R]) of cols and of vals (and vals_lo); the
-// block stages it in chunks of BELL_CHUNK blocks, 16 bytes a copy, and
-// each lane l of row r sums blocks indptr[r] + l, + l + G, ... in order,
-// in registers that persist across chunks.  A xor butterfly over the G
-// lanes then gives every row the same summation order from run to run.
-// The lo plane has its own sums, reduced the same way and added once.
-template <typename T, typename V, bool LO, int G>
+// R = BELL_THREADS / G consecutive rows.  Their entries are one contiguous
+// run [indptr[r0], indptr[r0 + R)) of cols and of vals (and vals_lo); the
+// block stages it in chunks of B::CHUNK entries, 16 bytes a copy, and
+// each lane l of row r sums entries indptr[r] + l, + l + G, ... in order,
+// B::ILP at a time, in registers that persist across chunks.  A xor
+// butterfly over the G lanes then gives every row the same summation
+// order from run to run.  The lo plane (Block only) has its own sums,
+// reduced the same way and added once.  G = 1 is the one-thread-a-row
+// loop of the earlier design: the row's entries read in order straight
+// from device memory, nothing staged.
+template <typename T, typename B, bool LO, int G>
 __global__ void __launch_bounds__(BELL_THREADS)
-bell_matvec_kernel(const int* __restrict__ indptr, const int* __restrict__ cols,
-                   const V* __restrict__ vals, const V* __restrict__ vals_lo,
-                   const T* __restrict__ u, T* __restrict__ out, int n_rows,
-                   int n_cols) {
+csr_matvec_kernel(const int* __restrict__ indptr, const int* __restrict__ cols,
+                  const typename B::V* __restrict__ vals,
+                  const typename B::V* __restrict__ vals_lo,
+                  const T* __restrict__ u, T* __restrict__ out, int n_rows,
+                  int n_cols) {
+    using V = typename B::V;
     constexpr int R = BELL_THREADS / G;
-    constexpr int PAD = 16 / sizeof(V);
-    // raw bytes: bf16 has constructors, which __shared__ arrays may not
-    __shared__ __align__(16) unsigned char s_raw[
-        (LO ? 2 : 1) * (9 * BELL_CHUNK + PAD) * sizeof(V)
-        + (BELL_CHUNK + 4) * sizeof(int)];
-    V* s_v = reinterpret_cast<V*>(s_raw);
-    V* s_lo = s_v + 9 * BELL_CHUNK + PAD;
-    int* s_c = reinterpret_cast<int*>(s_raw + (LO ? 2 : 1)
-                                                  * (9 * BELL_CHUNK + PAD)
-                                                  * sizeof(V));
+    constexpr int NV = B::NV, CHUNK = B::CHUNK, ILP = B::ILP;
     const int tid = threadIdx.x;
     const int lane = tid % G;
     const int r0 = blockIdx.x * R;
     const int r = r0 + tid / G;
-    const int J0 = indptr[r0];
-    const int J1 = indptr[min(r0 + R, n_rows)];
-    const int p0 = r < n_rows ? indptr[r] : J1;
-    const int p1 = r < n_rows ? indptr[r + 1] : J1;
     const T* __restrict__ u0 = u;
     const T* __restrict__ u1 = u + n_cols;
     const T* __restrict__ u2 = u + 2 * (int64_t)n_cols;
     T h0 = T(0), h1 = T(0), h2 = T(0);
     T l0 = T(0), l1 = T(0), l2 = T(0);
-    int j = p0 + lane;                     // this lane's next block
-    for (int jc = J0; jc < J1; jc += BELL_CHUNK) {
-        const int n = min(BELL_CHUNK, J1 - jc);
-        const int sv = stage(s_v, vals + 9 * (int64_t)jc, 9 * n);
-        const int sl = LO ? stage(s_lo, vals_lo + 9 * (int64_t)jc, 9 * n) : 0;
-        const int sc = stage(s_c, cols + jc, n);
-        cp_async_wait_all();
-        __syncthreads();
-        const int end = min(p1, jc + n);
-        for (; j < end; j += G) {
-            const int c = s_c[sc + j - jc];
+    if constexpr (G == 1) {
+        if (r >= n_rows) return;
+        const int end = indptr[r + 1];
+        for (int j = indptr[r]; j < end; ++j) {
+            const int c = cols[j];
             const T x = u0[c], y = u1[c], z = u2[c];
-            const V* v = s_v + sv + 9 * (j - jc);
-            h0 += T(widen(v[0])) * x + T(widen(v[1])) * y + T(widen(v[2])) * z;
-            h1 += T(widen(v[3])) * x + T(widen(v[4])) * y + T(widen(v[5])) * z;
-            h2 += T(widen(v[6])) * x + T(widen(v[7])) * y + T(widen(v[8])) * z;
-            if (LO) {
-                const V* w = s_lo + sl + 9 * (j - jc);
-                l0 += T(widen(w[0])) * x + T(widen(w[1])) * y + T(widen(w[2])) * z;
-                l1 += T(widen(w[3])) * x + T(widen(w[4])) * y + T(widen(w[5])) * z;
-                l2 += T(widen(w[6])) * x + T(widen(w[7])) * y + T(widen(w[8])) * z;
-            }
+            B::add(vals + NV * (int64_t)j, x, y, z, h0, h1, h2);
+            if (LO) B::add(vals_lo + NV * (int64_t)j, x, y, z, l0, l1, l2);
         }
-        __syncthreads();                   // the next chunk reuses the buffers
-    }
+    } else {
+        constexpr int PAD = 16 / sizeof(V);
+        // raw bytes: bf16 has constructors, which __shared__ arrays may not
+        __shared__ __align__(16) unsigned char s_raw[
+            (LO ? 2 : 1) * (NV * CHUNK + PAD) * sizeof(V)
+            + (CHUNK + 4) * sizeof(int)];
+        V* s_v = reinterpret_cast<V*>(s_raw);
+        V* s_lo = s_v + NV * CHUNK + PAD;
+        int* s_c = reinterpret_cast<int*>(s_raw + (LO ? 2 : 1)
+                                                      * (NV * CHUNK + PAD)
+                                                      * sizeof(V));
+        const int J0 = indptr[r0];
+        const int J1 = indptr[min(r0 + R, n_rows)];
+        const int p0 = r < n_rows ? indptr[r] : J1;
+        const int p1 = r < n_rows ? indptr[r + 1] : J1;
+        int j = p0 + lane;                 // this lane's next entry
+        for (int jc = J0; jc < J1; jc += CHUNK) {
+            const int n = min(CHUNK, J1 - jc);
+            const int sv = stage(s_v, vals + NV * (int64_t)jc, NV * n);
+            const int sl = LO ? stage(s_lo, vals_lo + NV * (int64_t)jc,
+                                      NV * n)
+                              : 0;
+            const int sc = stage(s_c, cols + jc, n);
+            cp_async_wait_all();
+            __syncthreads();
+            const int end = min(p1, jc + n);
+            while (j < end) {
+                int c[ILP];
+                T x[ILP][3];
 #pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-        h0 += __shfl_xor_sync(0xffffffffu, h0, off);
-        h1 += __shfl_xor_sync(0xffffffffu, h1, off);
-        h2 += __shfl_xor_sync(0xffffffffu, h2, off);
-        if (LO) {
-            l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-            l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-            l2 += __shfl_xor_sync(0xffffffffu, l2, off);
+                for (int k = 0; k < ILP; ++k)
+                    c[k] = j + k * G < end ? s_c[sc + j + k * G - jc] : -1;
+#pragma unroll
+                for (int k = 0; k < ILP; ++k) {
+                    const bool in = c[k] >= 0;
+                    x[k][0] = in ? u0[c[k]] : T(0);
+                    x[k][1] = in ? u1[c[k]] : T(0);
+                    x[k][2] = in ? u2[c[k]] : T(0);
+                }
+#pragma unroll
+                for (int k = 0; k < ILP; ++k) {
+                    if (j + k * G >= end) break;
+                    const int e = NV * (j + k * G - jc);
+                    B::add(s_v + sv + e, x[k][0], x[k][1], x[k][2], h0, h1,
+                           h2);
+                    if (LO) B::add(s_lo + sl + e, x[k][0], x[k][1], x[k][2],
+                                   l0, l1, l2);
+                }
+                // on to the first entry not summed (a chunk may end inside
+                // a batch)
+                j += G * min(ILP, (end - j + G - 1) / G);
+            }
+            __syncthreads();               // the next chunk reuses the buffers
+        }
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1) {
+            h0 += __shfl_xor_sync(0xffffffffu, h0, off);
+            h1 += __shfl_xor_sync(0xffffffffu, h1, off);
+            h2 += __shfl_xor_sync(0xffffffffu, h2, off);
+            if (LO) {
+                l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+                l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+                l2 += __shfl_xor_sync(0xffffffffu, l2, off);
+            }
         }
     }
     if (lane == 0 && r < n_rows) {
@@ -199,86 +283,49 @@ bell_matvec_kernel(const int* __restrict__ indptr, const int* __restrict__ cols,
     }
 }
 
-template <typename T, typename V>
-__global__ void __launch_bounds__(THREADS)
-sell_matvec_kernel(const int* __restrict__ indptr, const int* __restrict__ cols,
-                   const V* __restrict__ w, const T* __restrict__ u,
-                   T* __restrict__ out, int n_rows, int n_cols) {
-    const int n = blockIdx.x * THREADS + threadIdx.x;
-    if (n >= n_rows) return;
-    const T* __restrict__ u0 = u;
-    const T* __restrict__ u1 = u + n_cols;
-    const T* __restrict__ u2 = u + 2 * (int64_t)n_cols;
-    T a0 = T(0), a1 = T(0), a2 = T(0);
-    const int end = indptr[n + 1];
-    for (int j = indptr[n]; j < end; ++j) {
-        const int c = cols[j];
-        const T wj = T(widen(w[j]));
-        a0 += wj * u0[c];
-        a1 += wj * u1[c];
-        a2 += wj * u2[c];
-    }
-    out[n] = a0;
-    out[n_rows + n] = a1;
-    out[2 * (int64_t)n_rows + n] = a2;
-}
-
-inline unsigned blocks_for(int n_rows) {
-    return (unsigned)((n_rows + THREADS - 1) / THREADS);
-}
-
-template <typename T, typename V, int G>
-void launch_bell_g(const void* indptr, const void* cols, const void* vals,
-                   const void* vals_lo, const void* u, void* out, int n_rows,
-                   int n_cols, cudaStream_t stream) {
+template <typename T, typename B, int G>
+void launch_g(const void* indptr, const void* cols, const void* vals,
+              const void* vals_lo, const void* u, void* out, int n_rows,
+              int n_cols, cudaStream_t stream) {
+    using V = typename B::V;
     constexpr int R = BELL_THREADS / G;
     const unsigned blocks = (unsigned)((n_rows + R - 1) / R);
-    // the lo plane comes with float values only (the C entry points
+    // the lo plane comes with float blocks only (the C entry points
     // refuse it elsewhere), so only that instantiation carries its buffer
-    if constexpr (std::is_same<V, float>::value) {
+    if constexpr (std::is_same<B, Block<float>>::value) {
         if (vals_lo != nullptr) {
-            bell_matvec_kernel<T, V, true, G><<<blocks, BELL_THREADS, 0, stream>>>(
+            csr_matvec_kernel<T, B, true, G><<<blocks, BELL_THREADS, 0, stream>>>(
                 (const int*)indptr, (const int*)cols, (const V*)vals,
                 (const V*)vals_lo, (const T*)u, (T*)out, n_rows, n_cols);
             return;
         }
     }
-    bell_matvec_kernel<T, V, false, G><<<blocks, BELL_THREADS, 0, stream>>>(
+    csr_matvec_kernel<T, B, false, G><<<blocks, BELL_THREADS, 0, stream>>>(
         (const int*)indptr, (const int*)cols, (const V*)vals, nullptr,
         (const T*)u, (T*)out, n_rows, n_cols);
 }
 
-template <typename T, typename V>
-int launch_bell(const void* indptr, const void* cols, const void* vals,
-                const void* vals_lo, const void* u, void* out, int n_rows,
-                int n_cols, int lanes, void* stream) {
+template <typename T, typename B>
+int launch(const void* indptr, const void* cols, const void* vals,
+           const void* vals_lo, const void* u, void* out, int n_rows,
+           int n_cols, int lanes, void* stream) {
     if (n_rows <= 0) return 0;
     const cudaStream_t st = (cudaStream_t)stream;
-#define BELL_LANES(G)                                                        \
+#define CSR_LANES(G)                                                         \
     case G:                                                                  \
-        launch_bell_g<T, V, G>(indptr, cols, vals, vals_lo, u, out, n_rows,  \
-                               n_cols, st);                                  \
+        launch_g<T, B, G>(indptr, cols, vals, vals_lo, u, out, n_rows,       \
+                          n_cols, st);                                       \
         break;
     switch (lanes) {
-        BELL_LANES(2)
-        BELL_LANES(4)
-        BELL_LANES(8)
-        BELL_LANES(16)
-        BELL_LANES(32)
+        CSR_LANES(1)
+        CSR_LANES(2)
+        CSR_LANES(4)
+        CSR_LANES(8)
+        CSR_LANES(16)
+        CSR_LANES(32)
         default: return (int)cudaErrorInvalidValue;
     }
-#undef BELL_LANES
-    return (int)cudaGetLastError();
-}
-
-template <typename T, typename V>
-int launch_sell(const void* indptr, const void* cols, const void* w,
-                const void* u, void* out, int n_rows, int n_cols, void* stream) {
-    if (n_rows <= 0) return 0;
-    sell_matvec_kernel<T, V><<<blocks_for(n_rows), THREADS, 0,
-                               (cudaStream_t)stream>>>(
-        (const int*)indptr, (const int*)cols, (const V*)w, (const T*)u, (T*)out,
-        n_rows, n_cols);
+#undef CSR_LANES
     return (int)cudaGetLastError();
 }
 
@@ -286,53 +333,56 @@ int launch_sell(const void* indptr, const void* cols, const void* w,
 
 // Plain C interface, bound with ctypes in ops/bell.py.  All pointers are
 // device pointers; vals_lo may be null (the lo plane is taken only by the
-// float32 instantiation: the wrapper refuses it elsewhere).  Each entry
-// point returns cudaGetLastError() after its launch, 0 when n_rows is 0
+// float32 block instantiation: the wrapper refuses it elsewhere).  lanes
+// is G, 1 to 32 (ops/bell.bell_lanes, sell_lanes).  Each entry point
+// returns cudaGetLastError() after its launch, 0 when n_rows is 0
 // (nothing launched).
 extern "C" {
 
 int bell_matvec_f32(const void* indptr, const void* cols, const void* vals,
                     const void* vals_lo, const void* u, void* out, int n_rows,
                     int n_cols, int lanes, void* stream) {
-    return launch_bell<float, float>(indptr, cols, vals, vals_lo, u, out, n_rows,
-                                     n_cols, lanes, stream);
+    return launch<float, Block<float>>(indptr, cols, vals, vals_lo, u, out,
+                                       n_rows, n_cols, lanes, stream);
 }
 
 int bell_matvec_f32_bf16(const void* indptr, const void* cols, const void* vals,
                          const void* vals_lo, const void* u, void* out,
                          int n_rows, int n_cols, int lanes, void* stream) {
     if (vals_lo != nullptr) return (int)cudaErrorInvalidValue;
-    return launch_bell<float, __nv_bfloat16>(indptr, cols, vals, nullptr, u, out,
-                                             n_rows, n_cols, lanes, stream);
+    return launch<float, Block<__nv_bfloat16>>(indptr, cols, vals, nullptr, u,
+                                               out, n_rows, n_cols, lanes,
+                                               stream);
 }
 
 int bell_matvec_f64(const void* indptr, const void* cols, const void* vals,
                     const void* vals_lo, const void* u, void* out, int n_rows,
                     int n_cols, int lanes, void* stream) {
     if (vals_lo != nullptr) return (int)cudaErrorInvalidValue;
-    return launch_bell<double, double>(indptr, cols, vals, nullptr, u, out,
-                                       n_rows, n_cols, lanes, stream);
+    return launch<double, Block<double>>(indptr, cols, vals, nullptr, u, out,
+                                         n_rows, n_cols, lanes, stream);
 }
 
 int sell_matvec_f32(const void* indptr, const void* cols, const void* w,
                     const void* u, void* out, int n_rows, int n_cols,
-                    void* stream) {
-    return launch_sell<float, float>(indptr, cols, w, u, out, n_rows, n_cols,
-                                     stream);
+                    int lanes, void* stream) {
+    return launch<float, Weight<float>>(indptr, cols, w, nullptr, u, out,
+                                        n_rows, n_cols, lanes, stream);
 }
 
 int sell_matvec_f32_bf16(const void* indptr, const void* cols, const void* w,
                          const void* u, void* out, int n_rows, int n_cols,
-                         void* stream) {
-    return launch_sell<float, __nv_bfloat16>(indptr, cols, w, u, out, n_rows,
-                                             n_cols, stream);
+                         int lanes, void* stream) {
+    return launch<float, Weight<__nv_bfloat16>>(indptr, cols, w, nullptr, u,
+                                                out, n_rows, n_cols, lanes,
+                                                stream);
 }
 
 int sell_matvec_f64(const void* indptr, const void* cols, const void* w,
                     const void* u, void* out, int n_rows, int n_cols,
-                    void* stream) {
-    return launch_sell<double, double>(indptr, cols, w, u, out, n_rows, n_cols,
-                                       stream);
+                    int lanes, void* stream) {
+    return launch<double, Weight<double>>(indptr, cols, w, nullptr, u, out,
+                                          n_rows, n_cols, lanes, stream);
 }
 
 const char* bell_apply_error_string(int err) {

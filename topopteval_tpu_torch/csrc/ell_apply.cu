@@ -39,13 +39,39 @@
 // addresses, so a warp reads a slot's columns and values of 32 rows as
 // one coalesced 128-byte run and gathers u by address.
 //
-// bell_window: one thread a row, 128 a block, its S slots in order.
+// bell_window: the kernel of sell_window below over a body of 3x3 blocks
+//   (Block: a slot's nine values sit in nine planes S*128 apart; each is
+//   a coalesced 128-byte run of 32 rows in float).  W from S and the row
+//   count (ops/ell.window_warps): the fewest warps that fill the card
+//   with one wave (32 warps an SM) or leave a warp at most 8 slots; 4 at
+//   the Galerkin route's level 1 (36,297 rows, S 72: 18 slots a warp), 16
+//   at its level 2 (5,225 rows: 164 groups of 32 rows on 132 SMs).  Warp
+//   w issues the column loads of a batch of 8 slots, then their gathers
+//   of u (three components), then the nine values of each slot as it
+//   sums them.
 //   Bound: memory.  The real blocks' columns and values are read once, u
-//   once, out written once.  Scale-16 fine operator (222,208 rows, S 16):
-//   0.040 / 0.076 ms float / double at 3.35 TB/s on the real entries;
-//   18 flops per block do not bind.  Slots in order (columns sorted
-//   within each row), so the result is the same every run.
-//
+//   once, out written once; 18 flops a block do not bind.  Level 1:
+//   0.0256 / 0.0486 ms float / double at 3.35 TB/s (0.0315 / 0.0603 on
+//   every slot: 58.4 of its 72 slots a row are real).
+//   The earlier design (one thread a row, 128 a block, its S slots in
+//   order: a column load, the gather that needs it, then nine values, 72
+//   times in series) took 0.0736 ms float at level 1 (35 % of the bound,
+//   1.9x slower than B4 on the same matrix) and 0.0674 at level 2 (41
+//   blocks on 132 SMs): latency-bound.  At W = 1 (S <= 8) the kernel
+//   still runs that loop and gives its bits; at W > 1 the sum runs in
+//   warp order, so float results differ from the earlier kernel's and
+//   from the plain version's in the last bits.  Result, timed in turns
+//   with the earlier design (tools/kernel_ab.py, same card, cold in L2):
+//   level 1 0.0740 -> 0.0406 ms float, 0.0952 -> 0.0769 double (63 % of
+//   the bound; W = 8 0.0498, W = 2 0.0471), B4 on the same blocks
+//   0.0379; level 2 0.0676 -> 0.0095 float (W = 8 0.0139), 0.0787 ->
+//   0.0187 double (W = 8 0.0162: 79 registers leave one 512-thread block
+//   an SM).  Nearly all of it is the value planes: without their loads
+//   level 1 takes 0.0078 ms.  A pad slot (zero values
+//   after a row's last real column) is read like a real one: telling it
+//   apart needs the previous slot's column, and a row may hold one
+//   column twice.
+
 // sell_window: W warps a block of 32 consecutive rows of a tile (one row
 //   a lane); warp w takes slots w, w + W, w + 2W, ... of the 32 rows and
 //   keeps SLOTS = 8 of them in flight: their 8 column loads, then their 8
@@ -81,64 +107,57 @@
 namespace {
 
 constexpr int LANES = 128;
-constexpr int ROWS = 32;        // sell_window: rows of a block (one a lane)
-constexpr int SLOTS = 8;        // sell_window: slots a warp keeps in flight
+constexpr int ROWS = 32;        // rows of a group (one a lane)
+constexpr int SLOTS = 8;        // slots a warp keeps in flight
 
-// B9a: one thread a row, its S slots in order.
-template <typename T>
-__global__ void __launch_bounds__(LANES)
-bell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ vals,
-                   const int* __restrict__ wblk, const T* __restrict__ u,
-                   T* __restrict__ out, int S, int kc, int n_rows, int n_cols,
-                   int64_t u_cs, int64_t u_ns, int64_t o_cs, int64_t o_ns) {
-    const int t = blockIdx.x;
-    const int l = threadIdx.x;
-    const int n = t * LANES + l;
-    if (n >= n_rows) return;
-    const int64_t lo = (int64_t)wblk[t] * LANES;
-    const int64_t end = lo + (int64_t)kc * LANES;
-    const int64_t hi = end < (int64_t)n_cols ? end : (int64_t)n_cols;
-    const int* __restrict__ c_t = cols2 + (int64_t)t * S * LANES + l;
-    const int64_t plane = (int64_t)S * LANES;
-    const T* __restrict__ v_t = vals + (int64_t)t * 9 * plane + l;
-    T a0 = T(0), a1 = T(0), a2 = T(0);
-    for (int s = 0; s < S; ++s) {
-        const int64_t c = c_t[(int64_t)s * LANES];
-        T x = T(0), y = T(0), z = T(0);
-        if (c >= lo && c < hi) {
-            const T* __restrict__ uc = u + c * u_ns;
-            x = uc[0];
-            y = uc[u_cs];
-            z = uc[2 * u_cs];
-        }
-        const T* __restrict__ v = v_t + (int64_t)s * LANES;
+// What one slot holds and how it adds into the row's three sums (x, y,
+// z: the gathered u[:, c]); v points at the slot's first value, the
+// others plane apart.
+//   Block: a 3x3 block in nine planes, out[a] += sum_b v[3a+b] u[b]
+//   Weight: one weight, out[a] += w u[a]
+struct Block {
+    static constexpr int NV = 9;
+    template <typename T>
+    __device__ __forceinline__ static void add(const T* __restrict__ v,
+                                               int64_t plane, T x, T y, T z,
+                                               T& a0, T& a1, T& a2) {
         a0 += v[0] * x + v[plane] * y + v[2 * plane] * z;
         a1 += v[3 * plane] * x + v[4 * plane] * y + v[5 * plane] * z;
         a2 += v[6 * plane] * x + v[7 * plane] * y + v[8 * plane] * z;
     }
-    T* __restrict__ o = out + (int64_t)n * o_ns;
-    o[0] = a0;
-    o[o_cs] = a1;
-    o[2 * o_cs] = a2;
-}
+};
 
-// B9b: W warps for each group of 32 rows (one row a lane), G = 4 / W
-// groups a block (one when W >= 4); warp w of a group sums slots w,
-// w + W, ... of its lane's row, SLOTS of them in flight at a time; the W
-// partial sums of a row meet in shared memory and are added in warp
-// order.  W = 1 is the one-thread-a-row loop of bell_window: the slots in
-// order, one column load and its gather at a time (as many rows in
-// flight as the SM holds threads).
+struct Weight {
+    static constexpr int NV = 1;
+    template <typename T>
+    __device__ __forceinline__ static void add(const T* __restrict__ v,
+                                               int64_t, T x, T y, T z,
+                                               T& a0, T& a1, T& a2) {
+        const T w = v[0];
+        a0 += w * x;
+        a1 += w * y;
+        a2 += w * z;
+    }
+};
+
+// W warps for each group of 32 rows (one row a lane), G = 4 / W groups a
+// block (one when W >= 4); warp w of a group sums slots w, w + W, ... of
+// its lane's row, SLOTS of them in flight at a time (their column loads,
+// then their gathers, then the body's values and sums); the W partial
+// sums of a row meet in shared memory and are added in warp order.  W =
+// 1 is the one-thread-a-row loop: the slots in order, one column load
+// and its gather at a time (as many rows in flight as the SM holds
+// threads).
 template <int W>
-__host__ __device__ constexpr int sell_groups() { return W >= 4 ? 1 : 4 / W; }
+__host__ __device__ constexpr int groups() { return W >= 4 ? 1 : 4 / W; }
 
-template <typename T, int W>
-__global__ void __launch_bounds__(W * 32 * sell_groups<W>())
-sell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ w2,
-                   const int* __restrict__ wblk, const T* __restrict__ u,
-                   T* __restrict__ out, int S, int kc, int n_rows, int n_cols,
-                   int64_t u_cs, int64_t u_ns, int64_t o_cs, int64_t o_ns) {
-    constexpr int G = sell_groups<W>();
+template <typename T, typename B, int W>
+__global__ void __launch_bounds__(W * 32 * groups<W>())
+window_kernel(const int* __restrict__ cols2, const T* __restrict__ vals,
+              const int* __restrict__ wblk, const T* __restrict__ u,
+              T* __restrict__ out, int S, int kc, int n_rows, int n_cols,
+              int64_t u_cs, int64_t u_ns, int64_t o_cs, int64_t o_ns) {
+    constexpr int G = groups<W>();
     const int warp = (threadIdx.x >> 5) % W, group = (threadIdx.x >> 5) / W;
     const int lane = threadIdx.x & 31;
     const int r0 = (blockIdx.x * G + group) * ROWS;
@@ -149,10 +168,11 @@ sell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ w2,
     const int64_t lo = live ? (int64_t)wblk[t] * LANES : 0;
     const int64_t end = lo + (int64_t)kc * LANES;
     const int64_t hi = end < (int64_t)n_cols ? end : (int64_t)n_cols;
-    // slot s of this row sits at [t*S + s][r0 % 128 + lane]
-    const int64_t base = (int64_t)t * S * LANES + (r0 % LANES) + lane;
-    const int* __restrict__ c_t = cols2 + base;
-    const T* __restrict__ w_t = w2 + base;
+    // slot s of this row sits at [t*S + s][r0 % 128 + lane], value plane p
+    // of a block at [(9t + p)*S + s][r0 % 128 + lane]
+    const int64_t plane = (int64_t)S * LANES;
+    const int* __restrict__ c_t = cols2 + t * plane + (r0 % LANES) + lane;
+    const T* __restrict__ v_t = vals + t * B::NV * plane + (r0 % LANES) + lane;
     T a0 = T(0), a1 = T(0), a2 = T(0);
     if (W == 1) {
         if (n >= n_rows) return;
@@ -165,10 +185,7 @@ sell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ w2,
                 y = uc[u_cs];
                 z = uc[2 * u_cs];
             }
-            const T w = w_t[(int64_t)s * LANES];
-            a0 += w * x;
-            a1 += w * y;
-            a2 += w * z;
+            B::add(v_t + (int64_t)s * LANES, plane, x, y, z, a0, a1, a2);
         }
         T* __restrict__ o = out + (int64_t)n * o_ns;
         o[0] = a0;
@@ -178,12 +195,10 @@ sell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ w2,
     }
     for (int s0 = warp; live && s0 < S; s0 += W * SLOTS) {
         int64_t c[SLOTS];
-        T w[SLOTS];
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) {
             const int s = s0 + k * W;
             c[k] = s < S ? (int64_t)c_t[(int64_t)s * LANES] : (int64_t)-1;
-            w[k] = s < S ? w_t[(int64_t)s * LANES] : T(0);
         }
         T x[SLOTS][3];
 #pragma unroll
@@ -196,9 +211,10 @@ sell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ w2,
         }
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) {
-            a0 += w[k] * x[k][0];
-            a1 += w[k] * x[k][1];
-            a2 += w[k] * x[k][2];
+            const int s = s0 + k * W;
+            if (s < S)
+                B::add(v_t + (int64_t)s * LANES, plane, x[k][0], x[k][1],
+                       x[k][2], a0, a1, a2);
         }
     }
     __shared__ T part[G][W][3][ROWS];
@@ -218,54 +234,41 @@ sell_window_kernel(const int* __restrict__ cols2, const T* __restrict__ w2,
     }
 }
 
-template <typename T>
-int launch_bell(const void* cols2, const void* vals, const void* wblk,
-                const void* u, void* out, int S, int kc, int n_tiles,
-                int n_rows, int n_cols, long long u_cs, long long u_ns,
-                long long o_cs, long long o_ns, void* stream) {
-    if (n_rows <= 0) return 0;
-    if (S <= 0 || kc <= 0 || n_rows > n_tiles * LANES)
-        return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)((n_rows + LANES - 1) / LANES);
-    bell_window_kernel<T><<<blocks, LANES, 0, (cudaStream_t)stream>>>(
+template <typename T, typename B, int W>
+void launch_w(const void* cols2, const void* vals, const void* wblk,
+              const void* u, void* out, int S, int kc, int n_rows, int n_cols,
+              long long u_cs, long long u_ns, long long o_cs, long long o_ns,
+              cudaStream_t stream) {
+    constexpr int rows = ROWS * groups<W>();
+    const unsigned blocks = (unsigned)((n_rows + rows - 1) / rows);
+    window_kernel<T, B, W><<<blocks, W * 32 * groups<W>(), 0, stream>>>(
         (const int*)cols2, (const T*)vals, (const int*)wblk, (const T*)u,
         (T*)out, S, kc, n_rows, n_cols, u_cs, u_ns, o_cs, o_ns);
-    return (int)cudaGetLastError();
 }
 
-template <typename T, int W>
-void launch_sell_w(const void* cols2, const void* w2, const void* wblk,
-                   const void* u, void* out, int S, int kc, int n_rows,
-                   int n_cols, long long u_cs, long long u_ns,
-                   long long o_cs, long long o_ns, cudaStream_t stream) {
-    constexpr int rows = ROWS * sell_groups<W>();
-    const unsigned blocks = (unsigned)((n_rows + rows - 1) / rows);
-    sell_window_kernel<T, W><<<blocks, W * 32 * sell_groups<W>(), 0,
-                               stream>>>(
-        (const int*)cols2, (const T*)w2, (const int*)wblk, (const T*)u,
-        (T*)out, S, kc, n_rows, n_cols, u_cs, u_ns, o_cs, o_ns);
-}
-
-template <typename T>
-int launch_sell(const void* cols2, const void* w2, const void* wblk,
-                const void* u, void* out, int S, int kc, int n_tiles,
-                int n_rows, int n_cols, long long u_cs, long long u_ns,
-                long long o_cs, long long o_ns, int warps, void* stream) {
+template <typename T, typename B>
+int launch(const void* cols2, const void* vals, const void* wblk,
+           const void* u, void* out, int S, int kc, int n_tiles, int n_rows,
+           int n_cols, long long u_cs, long long u_ns, long long o_cs,
+           long long o_ns, int warps, void* stream) {
     if (n_rows <= 0) return 0;
     if (S <= 0 || kc <= 0 || n_rows > n_tiles * LANES)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
+#define WINDOW_WARPS(W)                                                      \
+    case W:                                                                  \
+        launch_w<T, B, W>(cols2, vals, wblk, u, out, S, kc, n_rows, n_cols,  \
+                          u_cs, u_ns, o_cs, o_ns, st);                       \
+        break;
     switch (warps) {
-        case 1: launch_sell_w<T, 1>(cols2, w2, wblk, u, out, S, kc, n_rows,
-                                    n_cols, u_cs, u_ns, o_cs, o_ns, st); break;
-        case 2: launch_sell_w<T, 2>(cols2, w2, wblk, u, out, S, kc, n_rows,
-                                    n_cols, u_cs, u_ns, o_cs, o_ns, st); break;
-        case 4: launch_sell_w<T, 4>(cols2, w2, wblk, u, out, S, kc, n_rows,
-                                    n_cols, u_cs, u_ns, o_cs, o_ns, st); break;
-        case 8: launch_sell_w<T, 8>(cols2, w2, wblk, u, out, S, kc, n_rows,
-                                    n_cols, u_cs, u_ns, o_cs, o_ns, st); break;
+        WINDOW_WARPS(1)
+        WINDOW_WARPS(2)
+        WINDOW_WARPS(4)
+        WINDOW_WARPS(8)
+        WINDOW_WARPS(16)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef WINDOW_WARPS
     return (int)cudaGetLastError();
 }
 
@@ -273,42 +276,45 @@ int launch_sell(const void* cols2, const void* w2, const void* wblk,
 
 // Plain C interface, bound with ctypes in ops/ell.py.  All pointers are
 // device pointers.  Each entry point returns cudaGetLastError() after its
-// launch, 0 when n_rows is 0 (nothing launched).  sell_window takes its
-// warps a block (1, 2, 4 or 8; ops/ell.sell_warps) last before the stream.
+// launch, 0 when n_rows is 0 (nothing launched).  Both take their warps
+// for every 32 rows (1, 2, 4, 8 or 16; ops/ell.sell_warps) last before
+// the stream.
 extern "C" {
 
 int bell_window_f32(const void* cols2, const void* vals, const void* wblk,
                     const void* u, void* out, int S, int kc, int n_tiles,
                     int n_rows, int n_cols, long long u_cs, long long u_ns,
-                    long long o_cs, long long o_ns, void* stream) {
-    return launch_bell<float>(cols2, vals, wblk, u, out, S, kc, n_tiles,
-                              n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, stream);
+                    long long o_cs, long long o_ns, int warps, void* stream) {
+    return launch<float, Block>(cols2, vals, wblk, u, out, S, kc, n_tiles,
+                                n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, warps,
+                                stream);
 }
 
 int bell_window_f64(const void* cols2, const void* vals, const void* wblk,
                     const void* u, void* out, int S, int kc, int n_tiles,
                     int n_rows, int n_cols, long long u_cs, long long u_ns,
-                    long long o_cs, long long o_ns, void* stream) {
-    return launch_bell<double>(cols2, vals, wblk, u, out, S, kc, n_tiles,
-                               n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, stream);
+                    long long o_cs, long long o_ns, int warps, void* stream) {
+    return launch<double, Block>(cols2, vals, wblk, u, out, S, kc, n_tiles,
+                                 n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, warps,
+                                 stream);
 }
 
 int sell_window_f32(const void* cols2, const void* w2, const void* wblk,
                     const void* u, void* out, int S, int kc, int n_tiles,
                     int n_rows, int n_cols, long long u_cs, long long u_ns,
                     long long o_cs, long long o_ns, int warps, void* stream) {
-    return launch_sell<float>(cols2, w2, wblk, u, out, S, kc, n_tiles,
-                              n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, warps,
-                              stream);
+    return launch<float, Weight>(cols2, w2, wblk, u, out, S, kc, n_tiles,
+                                 n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, warps,
+                                 stream);
 }
 
 int sell_window_f64(const void* cols2, const void* w2, const void* wblk,
                     const void* u, void* out, int S, int kc, int n_tiles,
                     int n_rows, int n_cols, long long u_cs, long long u_ns,
                     long long o_cs, long long o_ns, int warps, void* stream) {
-    return launch_sell<double>(cols2, w2, wblk, u, out, S, kc, n_tiles,
-                               n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, warps,
-                               stream);
+    return launch<double, Weight>(cols2, w2, wblk, u, out, S, kc, n_tiles,
+                                  n_rows, n_cols, u_cs, u_ns, o_cs, o_ns,
+                                  warps, stream);
 }
 
 const char* ell_apply_error_string(int err) {

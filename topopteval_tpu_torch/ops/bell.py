@@ -41,11 +41,14 @@ from ..mesh import resolve_device
 #: kernel launches per wrapper; only a launch of the CUDA kernel counts
 LAUNCHES = {"bell_matvec": 0, "sell_matvec": 0}
 
-#: threads of a bell_matvec block (csrc/bell_apply.cu BELL_THREADS): a
-#: block takes BELL_THREADS / lanes consecutive rows
+#: threads of a bell_matvec / sell_matvec block (csrc/bell_apply.cu
+#: BELL_THREADS): a block takes BELL_THREADS / lanes consecutive rows
 BELL_THREADS = 256
-#: blocks a bell_matvec lane sums in sequence, aimed at on average
+#: entries a lane sums in sequence, aimed at on average (bell_matvec's
+#: blocks, sell_matvec's weights)
 LANE_BLOCKS = 4
+#: sell_matvec: rows of fewer weights than this on average take one lane
+LANE_WEIGHTS = 8
 
 #: row padding of the component-major vectors (the JAX package's lane
 #: width, kept so both packages' [3, Np] arrays have one shape)
@@ -119,6 +122,17 @@ def bell_lanes(n_rows: int, nnz: int) -> int:
     return min(max(lanes, 2), 32)
 
 
+def sell_lanes(n_rows: int, nnz: int) -> int:
+    """Lanes that sum one row in ``sell_matvec``'s kernel: one for rows of
+    fewer than LANE_WEIGHTS weights on average (the prolongation's ~5.6
+    at scale 16; the row is then summed in entry order, as the plain
+    version does), else :func:`bell_lanes`' count (8 on the restriction's
+    ~34: a lane's four or five weights in one batch)."""
+    if nnz < LANE_WEIGHTS * max(n_rows, 1):
+        return 1
+    return bell_lanes(n_rows, nnz)
+
+
 def csr_arrays(rows, cols, data, n_rows: int):
     """Sorted-triplet packer: (rows, cols, data) -> (indptr int64 [n_rows+1],
     cols int32 [nnz], data [nnz, ...]) ordered by (row, col).  Duplicates
@@ -166,7 +180,7 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"sell_matvec_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.bell_apply_error_string.argtypes = [ctypes.c_int]
@@ -250,7 +264,8 @@ def sell_matvec(u_cm: torch.Tensor, T: BlockCSR) -> torch.Tensor:
     if u_cm.device.type != "cuda":
         raise ValueError(f"sell_matvec: no kernel for device {u_cm.device}")
     args = (T.indptr.data_ptr(), T.cols.data_ptr(), T.vals.data_ptr())
-    return _launch("sell_matvec", suffix, args, T, u_cm)
+    return _launch("sell_matvec", suffix, args, T, u_cm,
+                   (sell_lanes(T.n_rows, T.nnz),))
 
 
 # ---------------------------------------------------------------------------

@@ -53,10 +53,16 @@ ABLATE_MODES = ("full", "noskip", "nogather", "nofinal", "empty")
 
 LANES = 128
 GROUP = 8          # pack_ell_rows pads S to a multiple of this
-#: sell_window: slots a warp keeps in flight, and the warps a block may
-#: have (csrc/ell_apply.cu SLOTS and its instantiations)
+#: bell_window, sell_window: slots a warp keeps in flight
+#: (csrc/ell_apply.cu SLOTS), the warps for every 32 rows that
+#: ``sell_warps`` chooses from, and those that ``window_warps`` chooses
+#: from (the C entry points take all five)
 SELL_SLOTS = 8
 SELL_WARPS = (1, 2, 4, 8)
+WINDOW_WARPS = (1, 2, 4, 8, 16)
+#: warps the card holds at once at 32 an SM (132 SMs, H100 SXM): one wave
+#: of ``bell_window``'s blocks
+CARD_WARPS = 132 * 32
 
 
 def reset_launch_counts() -> None:
@@ -65,14 +71,28 @@ def reset_launch_counts() -> None:
 
 
 def sell_warps(S: int) -> int:
-    """Warps a block of ``sell_window`` for rows of ``S`` slots: the
-    fewest of ``SELL_WARPS`` that leave each warp at most ``SELL_SLOTS``
-    slots, else the most (8 for the restriction's S 48, 1 for the
-    prolongation's S 8)."""
+    """Warps for every 32 rows of ``sell_window`` for rows of ``S``
+    slots: the fewest of ``SELL_WARPS`` that leave each warp at most
+    ``SELL_SLOTS`` slots, else the most (8 for the restriction's S 48, 1
+    for the prolongation's S 8)."""
     for w in SELL_WARPS:
         if w * SELL_SLOTS >= S:
             return w
     return SELL_WARPS[-1]
+
+
+def window_warps(S: int, n_rows: int) -> int:
+    """Warps for every 32 rows of ``bell_window`` for ``n_rows`` rows of
+    ``S`` slots: the fewest of ``WINDOW_WARPS`` that put CARD_WARPS warps
+    on the card or leave each warp at most ``SELL_SLOTS`` slots (4 at the
+    Galerkin route's level 1, 36,297 rows of S 72: one wave; 16 at its
+    level 2, 5,225 rows).  More warps than a wave only add rounds of
+    part-filled batches."""
+    groups = _cdiv(max(n_rows, 1), 32)
+    for w in WINDOW_WARPS:
+        if groups * w >= CARD_WARPS or w * SELL_SLOTS >= S:
+            return w
+    return WINDOW_WARPS[-1]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -170,8 +190,7 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                            + [ctypes.c_longlong] * 4
-                           + [ctypes.c_int] * (name == "sell_window")
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     lib.ell_apply_error_string.argtypes = [ctypes.c_int]
     lib.ell_apply_error_string.restype = ctypes.c_char_p
@@ -235,11 +254,12 @@ def _apply(name: str, cols2, vals, wblk, u, S: int, kc: int,
     o_cs, o_ns, _ = _strides(out, node_major)
     lib = _library()
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    extra = (sell_warps(S),) if name == "sell_window" else ()
+    warps = (window_warps(S, rows) if name == "bell_window"
+             else sell_warps(S))
     err = getattr(lib, f"{name}_{_SUFFIX[u.dtype]}")(
         cols2.data_ptr(), vals.data_ptr(), wblk.data_ptr(), u.data_ptr(),
         out.data_ptr(), S, kc, wblk.shape[0], rows, n_cols, u_cs, u_ns,
-        o_cs, o_ns, *extra, stream)
+        o_cs, o_ns, warps, stream)
     if err != 0:
         msg = lib.ell_apply_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
@@ -257,7 +277,8 @@ def bell_matvec_window(cols2: torch.Tensor, vals2: torch.Tensor,
     """3x3-block ELL matvec: [3, n_cols] -> [3, n_rows] (or [n, 3] ->
     [n_rows, 3] with ``node_major``).  ``n_rows`` defaults to every row of
     the tiles, pad rows included (they come out 0).  ``gbounds`` is
-    accepted for the JAX signature and not read, as on the TPU."""
+    accepted for the JAX signature and not read, as on the TPU.  The
+    kernel takes :func:`window_warps` warps for every 32 rows."""
     del gbounds
     return _apply("bell_window", cols2, vals2, wblk, u, S, kc, node_major,
                   n_rows)

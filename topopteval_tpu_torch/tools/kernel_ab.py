@@ -2,10 +2,12 @@
 same kernels, on one card, in turns: the element applies B1
 ``tet4_apply`` and B2 ``hex8_apply`` (and B7 ``tet10_apply``, whose
 kernel shares their tile skeleton), the structured stencil apply B3
-``stencil_plane`` and the scan-window transfer B9b ``sell_window``.
+``stencil_plane``, the CSR transfer B5 ``sell_matvec`` and the
+scan-window block matvec B9a ``bell_window`` (with B9b ``sell_window``,
+which shares its kernel).
 
     python -m topopteval_tpu_torch.tools.kernel_ab --baseline DIR
-        [--only tet4|hex8|tet10|stencil|sell]
+        [--only tet4|hex8|tet10|stencil|csr|window]
 
 ``DIR`` is a checkout of another commit of this repository (for example
 ``git archive`` of the parent, unpacked).  Its
@@ -44,34 +46,44 @@ block-Jacobi CG (chip_smoke.py phase 4), the SIMP Hex8 fixture in fp32
 (phase 3), and the device time of an MG-PCG iteration of the Galerkin
 route at scale 16 in fp32 (phase 10f), under ``torch.profiler``.
 
-B3 and B9b (``--only stencil``, ``--only sell``): the baseline's
-``csrc/stencil_apply.cu`` and ``csrc/ell_apply.cu`` are bound under the
-C interfaces they had before their redesign,
+B3 (``--only stencil``): the baseline's ``csrc/stencil_apply.cu`` is
+bound under the interface it had before its redesign,
+``stencil_plane_f{32,64}(u, esc, ke, y, nx, ny, nz, stream)``, and timed
+in turns with this tree's wrapper on the 50x16x4, 100x32x8 and
+200x64x16-cell boxes (the 19,200-, 153,600- and 1,228,800-tet beams),
+uniform and with a per-cell scale, in float32 and float64, with the
+ablations ``nocompute`` (the staged corner values go to the face buffers
+with no arithmetic) and ``nostore`` of both trees, the tile variants
+(``tile32x4``, ``tile32x8``, ``tile64x4`` of its 16 x 8) and the z chunk
+(the runtime argument of this tree's kernel); then the stencil route's
+MG-PCG iteration at scale 16 in float64 (phase 7g) with either tree's B3
+in ``fem/structured.stencil_matvec``.
 
-    stencil_plane_f{32,64}(u, esc, ke, y, nx, ny, nz, stream)
-    sell_window_f{32,64}(cols2, w2, wblk, u, out, S, kc, n_tiles, n_rows,
-                         n_cols, u_cs, u_ns, o_cs, o_ns, stream)
+B5 (``--only csr``): the baseline's ``csrc/bell_apply.cu`` is bound under
+``sell_matvec_f{32,32_bf16,64}(indptr, cols, w, u, out, n_rows, n_cols,
+stream)`` (this tree's takes its lanes before the stream) and timed on
+the block-ELL route's first restriction and prolongation at scale 16
+(bf16 weights under float32 vectors, as the route stores them, and
+float64), cold in L2 (each call reads its own copy of the inputs, the
+copies spanning twice the 50 MB L2, as chip_smoke.py phase 10e) and warm;
+the ablation ``nogather`` of both trees (each entry reads u at the row's
+own number, after its column load); the lanes sweep (1, 2, 4, 8, 16);
+then the block-ELL route's MG-PCG iteration at scale 16 in float32 (phase
+8g) with either tree's B5 in ``fem/bell.sell_matvec``.
 
-and timed in turns with this tree's wrappers: B3 on the 50x16x4,
-100x32x8 and 200x64x16-cell boxes (the 19,200-, 153,600- and
-1,228,800-tet beams), uniform and with a per-cell scale, in float32 and
-float64; B9b on the first restriction and prolongation of the Galerkin
-route at scale 16 (node-major, as the V-cycle calls them), cold in L2
-(each call reads its own copy of the inputs, the copies spanning twice
-the 50 MB L2, as chip_smoke.py phase 10e), beside the CSR kernel B5 on
-the same triplets.  Every output is held against the plain version.
-Ablations (``ABLATIONS``): B3 ``nocompute`` (the staged corner values go
-to the face buffers with no arithmetic) and ``nostore`` of both trees;
-B9b ``nogather`` of both trees (each slot reads the row of u at its own
-row number, or the last row, still after its column load).  Sweeps: B3's z chunk (the
-runtime argument of this tree's kernel) and its tile (``tile32x4``,
-``tile32x8``, ``tile64x4`` variants of its 16 x 8); B9b's warps a block
-(1, 2, 4, 8).
-Then the device ms per MG-PCG iteration with either tree's kernel in the
-solver (``fem/structured.stencil_matvec``, ``fem/multigrid.
-sell_matvec_window``), in turns: the stencil route at scale 16 in
-float64 (phase 7g) and the Galerkin route at scale 16 in float32 (phase
-10f).
+B9a (``--only window``): the baseline's ``csrc/ell_apply.cu`` is bound
+under ``bell_window_f{32,64}(cols2, vals, wblk, u, out, S, kc, n_tiles,
+n_rows, n_cols, u_cs, u_ns, o_cs, o_ns, stream)`` (this tree's takes its
+warps before the stream; ``sell_window`` takes them in both) and timed
+on the Galerkin route's levels 1 and 2 at scale 16 (node-major, as the
+V-cycle calls them), cold, float32 and float64, beside B4 on the same
+blocks; the ablations ``nogather`` and ``novalues`` (the gathered u
+summed with no value loads) of both trees; the warps sweep (1, 2, 4, 8,
+16); B9b on the first restriction and prolongation, bit for bit against
+the baseline; then the Galerkin route's MG-PCG iteration at scale 16 in
+float32 (phase 10f) with either tree's B9a and B9b in
+``fem/ell.bell_matvec_window`` and ``fem/multigrid.sell_matvec_window``.
+Every output is held against the plain version.
 
 Prints one line per reading and ``AB OK`` last.  Needs a card and nvcc.
 """
@@ -180,21 +192,56 @@ STENCIL_ABLATIONS: Dict[Tuple[str, str], List[Tuple[str, str]]] = {
     ("current", "tile64x4"): [("constexpr int CX = 16, CY = 8;",
                                "constexpr int CX = 64, CY = 4;")],
 }
-SELL_ABLATIONS: Dict[Tuple[str, str], List[Tuple[str, str]]] = {
+#: B5 (bell_apply.cu): ``nogather`` reads u at the row's own number (or
+#: the last column) instead of the entry's column, still after the
+#: column load, in both loops (this tree: the one-lane loop and the
+#: batches of the kernel that B4 and B5 share; only B5 is timed from
+#: it).
+CSR_ABLATIONS: Dict[Tuple[str, str], List[Tuple[str, str]]] = {
     ("baseline", "nogather"): [(
-        "const T* __restrict__ uc = u + c * u_ns;",
-        "const T* __restrict__ uc = u + ((int64_t)min(n, n_cols - 1) "
-        "+ (c >> 62)) * u_ns;")],
-    ("current", "nogather"): [(
-        "const T* __restrict__ uc = u + (in ? c[k] : 0) * u_ns;",
-        "const T* __restrict__ uc = u + (in ? (int64_t)min(n, n_cols - 1) "
-        "+ (c[k] >> 62) : 0) * u_ns;")],
+        "const int c = cols[j];",
+        "const int c = min(n, n_cols - 1) + (cols[j] >> 31);")],
+    ("current", "nogather"): [
+        ("const int c = cols[j];",
+         "const int c = min(r, n_cols - 1) + (cols[j] >> 31);"),
+        ("c[k] = j + k * G < end ? s_c[sc + j + k * G - jc] : -1;",
+         "c[k] = j + k * G < end ? min(r, n_cols - 1) "
+         "+ (s_c[sc + j + k * G - jc] >> 31) : -1;")],
+}
+#: B9a and B9b (ell_apply.cu): ``nogather`` as for B5, in every gather of
+#: the slots that run with W > 1 warps (and, in the baseline, of B9a's
+#: one-thread loop); ``novalues`` sums the gathered u with no value loads
+#: (B9a).
+_BASE_B9A_GATHER = """            const T* __restrict__ uc = u + c * u_ns;
+            x = uc[0];
+            y = uc[u_cs];
+            z = uc[2 * u_cs];
+        }
+        const T* __restrict__ v = v_t"""
+_B9A_VALUES = """        a0 += v[0] * x + v[plane] * y + v[2 * plane] * z;
+        a1 += v[3 * plane] * x + v[4 * plane] * y + v[5 * plane] * z;
+        a2 += v[6 * plane] * x + v[7 * plane] * y + v[8 * plane] * z;"""
+_NOVALUES = """        a0 += x;
+        a1 += y;
+        a2 += z;"""
+_W_GATHER = "const T* __restrict__ uc = u + (in ? c[k] : 0) * u_ns;"
+_W_NOGATHER = ("const T* __restrict__ uc = u + (in ? (int64_t)min(n, n_cols "
+               "- 1) + (c[k] >> 62) : 0) * u_ns;")
+WINDOW_ABLATIONS: Dict[Tuple[str, str], List[Tuple[str, str]]] = {
+    ("baseline", "nogather"): [
+        (_BASE_B9A_GATHER, _BASE_B9A_GATHER.replace(
+            "u + c * u_ns", "u + ((int64_t)min(n, n_cols - 1) + (c >> 62)) "
+            "* u_ns")),
+        (_W_GATHER, _W_NOGATHER)],
+    ("baseline", "novalues"): [(_B9A_VALUES, _NOVALUES)],
+    ("current", "nogather"): [(_W_GATHER, _W_NOGATHER)],
+    ("current", "novalues"): [(_B9A_VALUES, _NOVALUES)],
 }
 #: the sources the ablations of each kernel edit
 ABLATED_SOURCE = {"element": "element_apply", "stencil": "stencil_apply",
-                  "sell": "ell_apply"}
+                  "csr": "bell_apply", "window": "ell_apply"}
 ABLATION_SETS = {"element": ABLATIONS, "stencil": STENCIL_ABLATIONS,
-                 "sell": SELL_ABLATIONS}
+                 "csr": CSR_ABLATIONS, "window": WINDOW_ABLATIONS}
 #: B3's tile variants, for the sweep
 STENCIL_TILES = ("tile32x4", "tile32x8", "tile64x4")
 #: B3's z chunks swept at the largest box (node planes a block; 0: the
@@ -204,8 +251,11 @@ STENCIL_CHUNKS = (0, 1, 2, 3, 4, 6, 9, 17)
 STENCIL_BOXES = ((50, 16, 4), (100, 32, 8), (200, 64, 16))
 #: the beam whose MG-PCG iterations are timed (1,228,800 tets)
 MG_SCALE = 16
-#: H100 SXM L2 cache, which the cold timings of B9b exceed
+#: H100 SXM L2 cache, which the cold timings of B5, B9a and B9b exceed
 L2_BYTES = 50 * 2 ** 20
+#: B5's lanes swept through the C entry point (B9a's warps: all of
+#: ops/ell.WINDOW_WARPS)
+CSR_LANES = (1, 2, 4, 8, 16)
 #: the tile each sweep variant adds, by kernel
 SWEEP = {"tet4_apply": ("tile256", 256), "hex8_apply": ("tile32", 32)}
 
@@ -258,17 +308,33 @@ def _bind_stencil(lib: ctypes.CDLL, current: bool) -> None:
         fn.restype = ctypes.c_int
 
 
-def _bind_sell(lib: ctypes.CDLL, current: bool) -> None:
-    """sell_window under this tree's interface (the wrapper's) or the
-    baseline's, which has no warps argument."""
-    from ..ops import ell
-    for sfx in ("f32", "f64"):
-        fn = getattr(lib, f"sell_window_{sfx}")
-        fn.argtypes = (getattr(ell._library(), f"sell_window_{sfx}").argtypes
+def _bind_csr(lib: ctypes.CDLL, current: bool) -> None:
+    """sell_matvec under this tree's interface (the wrapper's, with its
+    lanes) or the baseline's (indptr, cols, w, u, out, n_rows, n_cols,
+    stream)."""
+    from ..ops import bell
+    for sfx in ("f32", "f32_bf16", "f64"):
+        fn = getattr(lib, f"sell_matvec_{sfx}")
+        fn.argtypes = (getattr(bell._library(), f"sell_matvec_{sfx}").argtypes
                        if current else
-                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+
+
+def _bind_window(lib: ctypes.CDLL, current: bool) -> None:
+    """bell_window and sell_window under this tree's interface (the
+    wrapper's: both take warps) or the baseline's, whose bell_window takes
+    no warps."""
+    from ..ops import ell
+    for name in ("bell_window", "sell_window"):
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{sfx}")
+            types = list(getattr(ell._library(), f"{name}_{sfx}").argtypes)
+            if name == "bell_window" and not current:
+                del types[-2]
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -301,14 +367,16 @@ def apply_call(lib, name, coords, conn, u, lam, mu, tiles=None):
     return call
 
 
-def ab_times(calls: Dict[str, object], dev) -> Dict[str, float]:
+def ab_times(calls: Dict[str, object], dev,
+             inner: Dict[str, int] = None) -> Dict[str, float]:
     """Median ms of each call, timed in turns: a, b, ..., then reversed;
-    each name's reading is the mean of its two turns (both kept)."""
+    each name's reading is the mean of its two turns (both kept).
+    ``inner`` maps a name to its batch for time_ms (default 10)."""
     names = list(calls)
     order = names + names[::-1]
     got: Dict[str, List[float]] = {n: [] for n in names}
     for n in order:
-        got[n].append(time_ms(calls[n], dev))
+        got[n].append(time_ms(calls[n], dev, inner=(inner or {}).get(n, 10)))
     return {n: float(np.mean(v)) for n, v in got.items()} | {
         f"{n}_turns": v for n, v in got.items()}
 
@@ -323,10 +391,10 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", required=True,
                     help="checkout of the tree to compare with")
     ap.add_argument("--only", choices=("tet4", "hex8", "tet10", "stencil",
-                                       "sell"),
+                                       "csr", "window"),
                     help="one of the kernels (tet4 and hex8 with their "
-                         "solves, stencil and sell with their MG-PCG "
-                         "iterations)")
+                         "solves, stencil, csr and window with their "
+                         "MG-PCG iterations)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
@@ -339,7 +407,8 @@ def main(argv=None) -> int:
 
     groups = [g for g, names in (("element", ("tet4", "hex8", "tet10")),
                                  ("stencil", ("stencil",)),
-                                 ("sell", ("sell",)))
+                                 ("csr", ("csr",)),
+                                 ("window", ("window",)))
               if args.only is None or args.only in names]
 
     # -- build: this tree, the baseline and the ablation variants ----------
@@ -377,8 +446,11 @@ def main(argv=None) -> int:
         if name.startswith(("stencil_", "base_stencil")):
             _bind_stencil(libs[name], current=name.startswith(
                 "stencil_current_"))
-        elif name.startswith(("sell_", "base_ell")):
-            _bind_sell(libs[name], current=name.startswith("sell_current_"))
+        elif name.startswith(("csr_", "base_bell")):
+            _bind_csr(libs[name], current=name.startswith("csr_current_"))
+        elif name.startswith(("window_", "base_ell")):
+            _bind_window(libs[name],
+                         current=name.startswith("window_current_"))
         else:
             _bind(libs[name], current=name.startswith("current_"))
 
@@ -392,8 +464,10 @@ def main(argv=None) -> int:
                         [n for n in kernels if n != "tet10_apply"])
     if "stencil" in groups:
         stencil_phase(libs, dev)
-    if "sell" in groups:
-        sell_phase(libs, dev)
+    if "csr" in groups:
+        csr_phase(libs, dev)
+    if "window" in groups:
+        window_phase(libs, dev)
     print("AB OK")
     return 0
 
@@ -616,20 +690,38 @@ def stencil_call(lib, u, esc, coef, dims, zn=None):
     return call
 
 
-def sell_call(lib, cols2, w2, wblk, u, S, kc, n_rows, warps=None):
-    """A node-major call of ``sell_window`` in ``lib``: the baseline's
-    (``warps`` None) or this tree's with ``warps`` warps a block."""
-    fn = getattr(lib, f"sell_window_{_sfx(u.dtype)}")
+def csr_call(lib, T, u, lanes=None):
+    """A call of ``sell_matvec`` (B5) in ``lib``: the baseline's (``lanes``
+    None) or this tree's with ``lanes`` lanes a row."""
+    from ..ops import bell
+    fn = getattr(lib, f"sell_matvec_{bell._SUFFIX[(u.dtype, T.vals.dtype)]}")
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((3, T.n_rows), dtype=u.dtype, device=u.device)
+        extra = () if lanes is None else (lanes,)
+        _raise_on(fn(T.indptr.data_ptr(), T.cols.data_ptr(),
+                     T.vals.data_ptr(), u.data_ptr(), out.data_ptr(),
+                     T.n_rows, T.n_cols, *extra, stream), "sell_matvec")
+        return out
+    return call
+
+
+def window_call(lib, name, cols2, vals, wblk, u, S, kc, n_rows,
+                warps=None):
+    """A node-major call of ``name`` (``bell_window`` or ``sell_window``)
+    in ``lib``, with ``warps`` warps for every 32 rows (None: the
+    baseline's bell_window, which takes none)."""
+    fn = getattr(lib, f"{name}_{_sfx(u.dtype)}")
 
     def call():
         stream = torch.cuda.current_stream().cuda_stream
         out = torch.empty((n_rows, 3), dtype=u.dtype, device=u.device)
         extra = () if warps is None else (warps,)
-        _raise_on(fn(cols2.data_ptr(), w2.data_ptr(), wblk.data_ptr(),
+        _raise_on(fn(cols2.data_ptr(), vals.data_ptr(), wblk.data_ptr(),
                      u.data_ptr(), out.data_ptr(), S, kc, wblk.shape[0],
                      n_rows, u.shape[0], u.stride(1), u.stride(0),
-                     out.stride(1), out.stride(0), *extra, stream),
-                  "sell_window")
+                     out.stride(1), out.stride(0), *extra, stream), name)
         return out
     return call
 
@@ -809,134 +901,295 @@ def _ell_triplets(table):
     return rows[live], cols[live], w[live]
 
 
-def sell_phase(libs, dev):
-    """B9b: this tree against the baseline on the Galerkin route's first
-    restriction and prolongation on the beam of MG_SCALE, cold, float32
-    and float64, beside B5 on the same triplets, with the ablation and
-    the warps sweep; then that route's MG-PCG iteration (float32) with
-    either tree's B9b."""
+def _cold(make, tensors, out_bytes, calls=10):
+    """(fn, inner, copies): ``fn`` cycles through enough copies of
+    ``tensors`` that they span twice the L2 (``make(*copy)`` builds the
+    call on one copy, copy 0 the originals), so no call finds its
+    operands left there by the one before; ``inner``, the multiple of the
+    copy count nearest above ``calls``, is the batch for time_ms."""
     import itertools
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors) + out_bytes
+    n = max(1, -(-2 * L2_BYTES // n_bytes))
+    fns = [make(*tensors)] + [make(*(t.clone() for t in tensors))
+                              for _ in range(n - 1)]
+    nxt = itertools.cycle(fns).__next__
+    return (lambda: nxt()()), n * -(-calls // n), n
 
+
+def _bell_beam(scale=MG_SCALE):
+    """(problem, operator, V-cycle) of the beam of ``scale`` from a mesh
+    without ``structured_info``: the block-ELL route, float32."""
+    from .. import api as tt_api
+    mesh = _beam(scale)
+    mesh.structured_info = None
+    p = _problem(mesh, torch.float32)
+    op, M = tt_api._get_multigrid(p)
+    return p, op, M
+
+
+def csr_phase(libs, dev):
+    """B5: this tree against the baseline on the block-ELL route's first
+    restriction and prolongation at MG_SCALE (bf16 weights under float32
+    vectors, as the route stores them, and float64), cold and warm in L2,
+    with the ``nogather`` ablation of both trees and the lanes sweep; then
+    that route's MG-PCG iteration (float32) with either tree's B5 in
+    ``fem/bell.sell_matvec``."""
+    from ..fem import bell as fb
+    from ..ops import bell as bo
+    base = libs["base_bell_apply"]
+    p16, op, M = _bell_beam()
+    tr = M.levels[0].transfer
+    rng = np.random.default_rng(12)
+    for label, T0 in (("restrict0", tr.R), ("prolong0", tr.P)):
+        for vals_dtype in (torch.bfloat16, torch.float64):
+            vec = torch.float32 if vals_dtype == torch.bfloat16 \
+                else torch.float64
+            T = T0.with_vals(T0.vals.to(vals_dtype))
+            u = torch.as_tensor(rng.standard_normal((3, T.n_cols)),
+                                dtype=vec, device=dev)
+            G = bo.sell_lanes(T.n_rows, T.nnz)
+            ref = bo.sell_matvec_reference(u, T)
+            o1, o2 = bo.sell_matvec(u, T), bo.sell_matvec(u, T)
+            ob = csr_call(base, T, u)()
+            torch.cuda.synchronize()
+            errs = {"baseline": _check_against(ob, ref, vec, "B5 base"),
+                    "current": _check_against(o1, ref, vec, "B5"),
+                    "repeat_identical": bool(torch.equal(o1, o2)),
+                    "bitwise_baseline": bool(torch.equal(o1, ob))}
+            if not errs["repeat_identical"]:
+                raise AssertionError(f"B5 {label} {vals_dtype}: repeat")
+            for g in CSR_LANES:
+                errs[f"g{g}"] = _check_against(
+                    csr_call(bo._library(), T, u, g)(), ref, vec,
+                    f"B5 G={g}")
+
+            def tensors(A):
+                return (A.indptr, A.cols, A.vals, u)
+
+            def make(lib, lanes=None):
+                return lambda ip, c, v, uu: csr_call(
+                    lib, dataclasses.replace(T, indptr=ip, cols=c, vals=v),
+                    uu, lanes)
+
+            out_bytes = 3 * T.n_rows * u.element_size()
+            cold = {"baseline": _cold(make(base), tensors(T), out_bytes),
+                    "current": _cold(
+                        lambda ip, c, v, uu: (lambda: bo.sell_matvec(
+                            uu, dataclasses.replace(T, indptr=ip, cols=c,
+                                                    vals=v))),
+                        tensors(T), out_bytes)}
+            for tree in ("baseline", "current"):
+                cold[f"{tree}_nogather"] = _cold(
+                    make(libs[f"csr_{tree}_nogather"],
+                         None if tree == "baseline" else G),
+                    tensors(T), out_bytes)
+            for g in CSR_LANES:
+                if g != G:
+                    cold[f"current_g{g}"] = _cold(make(bo._library(), g),
+                                                  tensors(T), out_bytes)
+            calls = {n: v[0] for n, v in cold.items()}
+            inner = {n: v[1] for n, v in cold.items()}
+            calls["baseline_warm"] = csr_call(base, T, u)
+            calls["current_warm"] = lambda: bo.sell_matvec(u, T)
+            inner["baseline_warm"] = inner["current_warm"] = 10
+            times = ab_times(calls, dev, inner)
+            nbytes = (T.indptr.numel() * 4 + T.nnz * 4
+                      + T.vals.numel() * T.vals.element_size()
+                      + u.numel() * u.element_size() + out_bytes)
+            b_ms, b_by = bound_ms(nbytes, 6 * T.nnz, vec)
+            print(f"[ab] sell_matvec {label} "
+                  f"{str(vals_dtype)[6:]}/{str(vec)[6:]} rows={T.n_rows} "
+                  f"nnz={T.nnz} G={G} copies={cold['current'][2]} "
+                  f"bound_ms={b_ms} ({b_by}) " + json.dumps(times)
+                  + f" rel_err={json.dumps(errs)} speedup="
+                  f"{times['baseline'] / times['current']:.3f} (cold; "
+                  "*_warm: one copy)", flush=True)
+            del cold, calls
+            torch.cuda.empty_cache()
+
+    # the block-ELL route's MG-PCG iteration at scale 16, float32
+    b = torch.as_tensor(op.to_cm(p16.f), dtype=torch.float32, device=dev) \
+        * op.free_mask
+    kernels = {"current": fb.sell_matvec,
+               "baseline": lambda u, T: csr_call(base, T, u)()}
+    per = {}
+    try:
+        for tree in ("baseline", "current", "current", "baseline"):
+            fb.sell_matvec = kernels[tree]
+            wall, dev_ms, parts = mgpcg_iteration(op, M, b)
+            b5 = sum(v for k, v in parts.items() if "csr_matvec" in k
+                     and "Weight" in k or "sell_matvec" in k)
+            per.setdefault(tree, []).append(
+                {"wall_ms_per_iter": wall, "device_ms_per_iter": dev_ms,
+                 "b5_device_ms_per_iter": b5})
+    finally:
+        fb.sell_matvec = kernels["current"]
+    print(f"[ab] mgpcg_iteration bell_beam{MG_SCALE}_fp32 "
+          + json.dumps(per), flush=True)
+
+
+def window_phase(libs, dev):
+    """B9a: this tree against the baseline on the Galerkin route's levels
+    1 and 2 at MG_SCALE (node-major, as the V-cycle calls them), cold,
+    float32 and float64, beside B4 on the same blocks, with the
+    ``nogather`` and ``novalues`` ablations of both trees and the warps
+    sweep; B9b, which shares the kernel, on the first restriction and
+    prolongation, against the baseline bit for bit; then that route's
+    MG-PCG iteration (float32) with either tree's B9a and B9b in
+    ``fem/ell.bell_matvec_window`` and ``fem/multigrid.
+    sell_matvec_window``."""
+    from ..fem import ell as fe
     from ..fem import multigrid as fmg
     from ..ops import bell as bo
     from ..ops import ell
     base = libs["base_ell_apply"]
     p16, op, M = _galerkin_beam()
-    tr = M.levels[0].transfer
     rng = np.random.default_rng(11)
+    levels = [(f"level{i}", M.levels[i].op) for i in (1, 2)
+              if i < len(M.levels) and hasattr(M.levels[i].op, "cols2")]
+    for label, L in levels:
+        rows_t, cols_t, blocks_t = L.triplets()
+        n = L.n_nodes
+        W = ell.window_warps(L.S, n)
+        for dtype in (torch.float32, torch.float64):
+            vals2 = L.vals2.to(dtype)
+            u = torch.as_tensor(rng.standard_normal((n, 3)), dtype=dtype,
+                                device=dev)
+            args = (L.cols2, vals2, L.wblk, L.gbounds, u, L.S, L.kc)
+            kw = {"node_major": True, "n_rows": n}
+            ref = ell.bell_matvec_window_reference(*args, **kw)
+            o1 = ell.bell_matvec_window(*args, **kw)
+            o2 = ell.bell_matvec_window(*args, **kw)
+            ob = window_call(base, "bell_window", L.cols2, vals2, L.wblk, u,
+                             L.S, L.kc, n)()
+            torch.cuda.synchronize()
+            errs = {"baseline": _check_against(ob, ref, dtype, "B9a base"),
+                    "current": _check_against(o1, ref, dtype, "B9a"),
+                    "repeat_identical": bool(torch.equal(o1, o2))}
+            if not errs["repeat_identical"]:
+                raise AssertionError(f"B9a {label} {dtype}: repeat")
+            for w in ell.WINDOW_WARPS:
+                errs[f"w{w}"] = _check_against(window_call(
+                    ell._library(), "bell_window", L.cols2, vals2, L.wblk, u,
+                    L.S, L.kc, n, w)(), ref, dtype, f"B9a W={w}")
+
+            def make(lib, warps=None):
+                return lambda c, v, wb, uu: window_call(
+                    lib, "bell_window", c, v, wb, uu, L.S, L.kc, n, warps)
+
+            tens = (L.cols2, vals2, L.wblk, u)
+            out_bytes = 3 * n * u.element_size()
+            cold = {"baseline": _cold(make(base), tens, out_bytes),
+                    "current": _cold(
+                        lambda c, v, wb, uu: (
+                            lambda: ell.bell_matvec_window(
+                                c, v, wb, L.gbounds, uu, L.S, L.kc, **kw)),
+                        tens, out_bytes)}
+            for tree in ("baseline", "current"):
+                for variant in ("nogather", "novalues"):
+                    cold[f"{tree}_{variant}"] = _cold(
+                        make(libs[f"window_{tree}_{variant}"],
+                             None if tree == "baseline" else W),
+                        tens, out_bytes)
+            for w in ell.WINDOW_WARPS:
+                if w != W:
+                    cold[f"current_w{w}"] = _cold(make(ell._library(), w),
+                                                  tens, out_bytes)
+            A = bo.pack_csr(rows_t, cols_t, blocks_t, n, n, dtype, dev)
+            u_cm = u.t().contiguous()
+            errs["b4"] = _check_against(bo.bell_matvec(u_cm, A).t(), ref,
+                                        dtype, "B4")
+            cold["b4"] = _cold(
+                lambda ip, c, v, uu: (lambda: bo.bell_matvec(
+                    uu, dataclasses.replace(A, indptr=ip, cols=c, vals=v))),
+                (A.indptr, A.cols, A.vals, u_cm), out_bytes)
+            calls = {k: v[0] for k, v in cold.items()}
+            inner = {k: v[1] for k, v in cold.items()}
+            times = ab_times(calls, dev, inner)
+            item = u.element_size()
+            nnz = len(rows_t)
+            b_ms, b_by = bound_ms(nnz * (4 + 9 * item) + 6 * n * item,
+                                  18 * nnz, dtype)
+            print(f"[ab] bell_window {label} {str(dtype)[6:]} rows={n} "
+                  f"S={L.S} kc={L.kc} W={W} nnz={nnz} "
+                  f"copies={cold['current'][2]} bound_ms={b_ms} ({b_by}) "
+                  + json.dumps(times) + f" rel_err={json.dumps(errs)} "
+                  f"speedup={times['baseline'] / times['current']:.3f} "
+                  "(all cold)", flush=True)
+            del cold, calls, A
+            torch.cuda.empty_cache()
+
+    # B9b: the same kernel over weights, against the baseline bit for bit
+    tr = M.levels[0].transfer
     for label, T, n_cols in (("restrict0", tr.R, tr.P.n_rows),
                              ("prolong0", tr.P, tr.R.n_rows)):
-        rows_t, cols_t, w_t = _ell_triplets(T)
+        W = ell.sell_warps(T.S)
         for dtype in (torch.float32, torch.float64):
             w2 = T.w2.to(dtype)
             u = torch.as_tensor(rng.standard_normal((n_cols, 3)),
                                 dtype=dtype, device=dev)
-            args = (T.cols2, w2, T.wblk, T.gbounds, u, T.S, T.kc)
             kw = {"node_major": True, "n_rows": T.n_rows}
-            ref = ell.sell_matvec_window_reference(*args, **kw)
-            # copies of the inputs spanning twice the L2: no call finds
-            # its operands left there by the one before
-            nbytes = sum(t.numel() * t.element_size()
-                         for t in (T.cols2, w2, T.wblk, u)) \
-                + T.n_rows * 3 * u.element_size()
-            n_copies = max(1, -(-2 * L2_BYTES // nbytes))
-            copies = [(T.cols2, w2, T.wblk, u)] + [
-                tuple(t.clone() for t in (T.cols2, w2, T.wblk, u))
-                for _ in range(n_copies - 1)]
-            inner = n_copies * -(-10 // n_copies)
-
-            def cold(make):
-                fns = [make(*c) for c in copies]
-                nxt = itertools.cycle(fns).__next__
-                return lambda: nxt()()
-
-            calls = {
-                "baseline": cold(lambda c, w, wb, uu: sell_call(
-                    base, c, w, wb, uu, T.S, T.kc, T.n_rows)),
-                "current": cold(lambda c, w, wb, uu: (
-                    lambda: ell.sell_matvec_window(
-                        c, w, wb, T.gbounds, uu, T.S, T.kc, **kw)))}
-            for tree in ("baseline", "current"):
-                calls[f"{tree}_nogather"] = cold(
-                    lambda c, w, wb, uu, _l=libs[f"sell_{tree}_nogather"],
-                    _w=(None if tree == "baseline" else ell.sell_warps(T.S)):
-                    sell_call(_l, c, w, wb, uu, T.S, T.kc, T.n_rows, _w))
-            for W in ell.SELL_WARPS:
-                if W != ell.sell_warps(T.S):
-                    calls[f"current_w{W}"] = cold(
-                        lambda c, w, wb, uu, _W=W: sell_call(
-                            ell._library(), c, w, wb, uu, T.S, T.kc,
-                            T.n_rows, _W))
-            A = bo.pack_csr(rows_t, cols_t, w_t, T.n_rows, n_cols, dtype,
-                            dev)
-            u_cm = u.t().contiguous()
-            b5_copies = [(A, u_cm)] + [
-                (dataclasses.replace(A, indptr=A.indptr.clone(),
-                                     cols=A.cols.clone(),
-                                     vals=A.vals.clone()), u_cm.clone())
-                for _ in range(n_copies - 1)]
-            b5_fns = [(lambda _A=Aj, _u=uj: bo.sell_matvec(_u, _A))
-                      for Aj, uj in b5_copies]
-            calls["b5"] = itertools.cycle(b5_fns).__next__
-            o1 = calls["current"]()
-            o2 = ell.sell_matvec_window(*args, **kw)
-            o3 = ell.sell_matvec_window(*args, **kw)
-            ob = sell_call(base, T.cols2, w2, T.wblk, u, T.S, T.kc,
-                           T.n_rows)()
+            ref = ell.sell_matvec_window_reference(
+                T.cols2, w2, T.wblk, T.gbounds, u, T.S, T.kc, **kw)
+            o1 = ell.sell_matvec_window(T.cols2, w2, T.wblk, T.gbounds, u,
+                                        T.S, T.kc, **kw)
+            ob = window_call(base, "sell_window", T.cols2, w2, T.wblk, u,
+                             T.S, T.kc, T.n_rows, W)()
             torch.cuda.synchronize()
-            errs = {"baseline": _check_against(ob, ref, dtype, "B9b base"),
-                    "current": _check_against(o1, ref, dtype, "B9b"),
-                    "repeat_identical": bool(torch.equal(o2, o3)),
-                    "b5": _check_against(bo.sell_matvec(u_cm, A).t(), ref,
-                                         dtype, "B5")}
-            if ell.sell_warps(T.S) == 1:    # the earlier kernel's order
-                errs["bitwise_baseline"] = bool(torch.equal(o1, ob))
-            for W in ell.SELL_WARPS:
-                errs[f"w{W}"] = _check_against(sell_call(
-                    ell._library(), T.cols2, w2, T.wblk, u, T.S, T.kc,
-                    T.n_rows, W)(), ref, dtype, f"B9b W={W}")
-            if not errs["repeat_identical"]:
-                raise AssertionError(f"B9b {label} {dtype}: repeat")
-            item = u.element_size()
-            real = len(rows_t) * (4 + item) + 3 * (n_cols + T.n_rows) * item
-            b_ms, b_by = bound_ms(real, 6 * len(rows_t), dtype)
-            calls["b5"] = (lambda _n=calls["b5"]: _n()())
-            got = {n: [] for n in calls}
-            for n in list(calls) + list(calls)[::-1]:
-                got[n].append(time_ms(calls[n], dev, inner=inner))
-            times = {n: float(np.mean(v)) for n, v in got.items()} | {
-                f"{n}_turns": v for n, v in got.items()}
+            errs = {"current": _check_against(o1, ref, dtype, "B9b"),
+                    "bitwise_baseline": bool(torch.equal(o1, ob))}
+            if not errs["bitwise_baseline"]:
+                raise AssertionError(f"B9b {label} {dtype}: not the "
+                                     "baseline's bits")
+
+            def make(lib):
+                return lambda c, v, wb, uu: window_call(
+                    lib, "sell_window", c, v, wb, uu, T.S, T.kc, T.n_rows, W)
+
+            tens = (T.cols2, w2, T.wblk, u)
+            out_bytes = 3 * T.n_rows * u.element_size()
+            cold = {"baseline": _cold(make(base), tens, out_bytes),
+                    "current": _cold(make(ell._library()), tens, out_bytes)}
+            for tree in ("baseline", "current"):
+                cold[f"{tree}_nogather"] = _cold(
+                    make(libs[f"window_{tree}_nogather"]), tens, out_bytes)
+            times = ab_times({k: v[0] for k, v in cold.items()}, dev,
+                             {k: v[1] for k, v in cold.items()})
             print(f"[ab] sell_window {label} {str(dtype)[6:]} rows="
-                  f"{T.n_rows} S={T.S} kc={T.kc} W={ell.sell_warps(T.S)} "
-                  f"nnz={len(rows_t)} copies={n_copies} bound_ms={b_ms} "
-                  f"({b_by}) " + json.dumps(times)
-                  + f" rel_err={json.dumps(errs)} speedup="
-                  f"{times['baseline'] / times['current']:.3f} (all cold)",
-                  flush=True)
-            del copies, calls, A, b5_copies, b5_fns
+                  f"{T.n_rows} S={T.S} W={W} " + json.dumps(times)
+                  + f" rel_err={json.dumps(errs)} (all cold)", flush=True)
+            del cold
             torch.cuda.empty_cache()
 
     # the Galerkin route's MG-PCG iteration at scale 16, float32
     b = torch.as_tensor(p16.f, dtype=torch.float32, device=dev) \
         * op.free_mask
-    kernels = {"current": fmg.sell_matvec_window}
+    current = (fe.bell_matvec_window, fmg.sell_matvec_window)
+
+    def base_bell(cols2, vals2, wblk, gbounds, u, S, kc, *, node_major=False,
+                  n_rows=None):
+        return window_call(base, "bell_window", cols2, vals2, wblk, u, S,
+                           kc, n_rows)()
 
     def base_sell(cols2, w2, wblk, gbounds, u, S, kc, *, node_major=False,
                   n_rows=None):
-        return sell_call(base, cols2, w2, wblk, u, S, kc, n_rows)()
+        return window_call(base, "sell_window", cols2, w2, wblk, u, S, kc,
+                           n_rows, ell.sell_warps(S))()
 
-    kernels["baseline"] = base_sell
+    kernels = {"current": current, "baseline": (base_bell, base_sell)}
     per = {}
     try:
         for tree in ("baseline", "current", "current", "baseline"):
-            fmg.sell_matvec_window = kernels[tree]
+            fe.bell_matvec_window, fmg.sell_matvec_window = kernels[tree]
             wall, dev_ms, parts = mgpcg_iteration(op, M, b)
-            b9b = sum(v for k, v in parts.items() if "sell_window" in k)
+            b9a = sum(v for k, v in parts.items() if "bell_window" in k
+                      or ("window_kernel" in k and "Block" in k))
             per.setdefault(tree, []).append(
                 {"wall_ms_per_iter": wall, "device_ms_per_iter": dev_ms,
-                 "b9b_device_ms_per_iter": b9b})
+                 "b9a_device_ms_per_iter": b9a,
+                 "top": sorted(parts.items(), key=lambda kv: -kv[1])[:4]})
     finally:
-        fmg.sell_matvec_window = kernels["current"]
+        fe.bell_matvec_window, fmg.sell_matvec_window = current
     print(f"[ab] mgpcg_iteration galerkin_beam{MG_SCALE}_fp32 "
           + json.dumps(per), flush=True)
 
