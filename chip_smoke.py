@@ -30,14 +30,15 @@ few) and each failing the script on a failed check:
    share under ``torch.profiler``;
 7. the structured-multigrid route (``preconditioner="multigrid"``) on
    generated beams: both stencil kernels against their plain version at
-   three shapes, the float32 energy of a converged solution through the
-   stencil, then scales 4, 8 and 16 (1,228,800 tets, 666,315 DOFs) in
+   three shapes and bit for bit against each other, the float32 energy of
+   a converged solution through the stencil, then scales 4, 8 and 16
+   (1,228,800 tets, 666,315 DOFs) in
    float64 against data/oracle_energies.json, scale 8 once more through
    the opt-in ``window`` kernel, a per-hex SIMP scale-4 beam against the
    host direct oracle, and scale 16 in float32 through the refinement
    route; the stencil kernels' times beside their bound, the plain
-   version and a two-``conv3d`` library yardstick (the plane kernel also
-   at the two coarser smoothed levels, each yardstick on its own Ke); and
+   version and a two-``conv3d`` library yardstick (also at the two
+   coarser smoothed levels, each yardstick on its own Ke); and
    where one MG-PCG iteration at scale 16 spends its time;
 8. the block-ELL multigrid route on meshes without ``structured_info``:
    the 1,228,800-tet beam written to .vtu and read back, solved in float32
@@ -57,7 +58,8 @@ few) and each failing the script on a failed check:
 9. quadratic elements and the stored-Ke operator: the tet10 apply (B7)
    and the Ke-batch kernels (B6 tet4, B8 hex8 and tet10) against their
    plain versions at the scale-8 tet10 beam (153,600 elements), the
-   scale-16 tet4 beam and the SIMP Hex8 fixture, B7 also on the Tet4
+   scale-16 tet4 beam and the SIMP Hex8 fixture (hex8 also at phase 2's
+   25,600-hex box, timed there too), B7 also on the Tet4
    fixture at order 2 (small tiles) and a ragged cut of the beam; the
    scale-4 tet10 beam
    through ``solve_system(p)`` with no config (fp32 block-Jacobi CG under
@@ -1465,8 +1467,8 @@ def main() -> int:
     # 7a. parity at the scale-16 lattice, its coarsest smoothed level and
     # an odd box where every boundary case occurs; each kernel also
     # repeats its own output bit for bit.  The two kernels compute the
-    # function in two forms (the six-tet cell form, Ke): they agree
-    # within the tolerance, not bit for bit
+    # same cell forces and sum every node in the same order: they give
+    # the same bits
     stencil_errs = {}
     for dims in ((200, 64, 16), (50, 16, 4), (7, 5, 3)):
         for dtype in (torch.float64, torch.float32):
@@ -1502,12 +1504,13 @@ def main() -> int:
                           "version")
                 gap = float((outs["stencil_plane"]
                              - outs["stencil_window"]).abs().max())
+                bit_equal = bool(torch.equal(outs["stencil_plane"],
+                                             outs["stencil_window"]))
                 print(f"[parity] plane vs window {dname} dims={dims} "
                       f"esc={'random' if simp else 'none'} "
-                      f"max_abs_diff={gap:.3e} bit_equal={gap == 0.0}",
+                      f"max_abs_diff={gap:.3e} bit_equal={bit_equal}",
                       flush=True)
-                check(gap <= TOLERANCE[dname] * scale,
-                      f"plane and window disagree at {dims} {dname}")
+                check(bit_equal, f"plane and window differ at {dims} {dname}")
 
     def beam_problem(scale, dtype, escale=None):
         mesh = tt.generate_grid_tet(25 * scale // 2, 4 * scale, scale,
@@ -1684,9 +1687,9 @@ def main() -> int:
                 else:
                     rec.update({f"{key}_fp64": val
                                 for key, val in vals.items()})
-        # the coarser smoothed levels of the scale-16 hierarchy (B3 only),
-        # each with the two-conv yardstick on its own Ke
-        for dims in ((100, 32, 8), (50, 16, 4)) * (name == "stencil_plane"):
+        # the coarser smoothed levels of the scale-16 hierarchy, each with
+        # the two-conv yardstick on its own Ke
+        for dims in ((100, 32, 8), (50, 16, 4)):
             cells = dims[0] * dims[1] * dims[2]
             for dtype in (torch.float32, torch.float64):
                 dname = str(dtype).split(".")[1]
@@ -2160,10 +2163,13 @@ def main() -> int:
                    "tet4_ke": (beam16, lam0, mu0),
                    "tet10_ke": (quad8, lam0, mu0),
                    "hex8_ke": (hexfix, hex_lam, hex_mu)}
+    # hex8_ke also at phase 2's 25,600-hex box with SIMP lam, mu (the
+    # fixture's bound is close to a launch's time)
+    quad_extra = {"hex8_ke": {"box": (box, box_lam, box_mu)}}
     u_quad8 = np.random.default_rng(9).standard_normal(quad8.n_dofs)
 
-    def quad_inputs(name, dtype):
-        m, lam, mu = quad_meshes[name]
+    def quad_inputs(name, dtype, shape=None):
+        m, lam, mu = shape or quad_meshes[name]
         C, k = m.conn.shape
 
         def t(a):
@@ -2184,10 +2190,14 @@ def main() -> int:
     counts_of = {"tet10_apply": ek.LAUNCHES, "tet4_ke": kk.LAUNCHES,
                  "tet10_ke": kk.LAUNCHES, "hex8_ke": kk.LAUNCHES}
     quad_errs = {}
-    for name, (kern, plain) in quad_fns.items():
+    quad_cases = [(name, "", None) for name in quad_fns] + [
+        (name, label, shape) for name, extra in quad_extra.items()
+        for label, shape in extra.items()]
+    for name, label, shape in quad_cases:
+        kern, plain = quad_fns[name]
         for dtype in (torch.float64, torch.float32):
             dname = str(dtype).split(".")[1]
-            args = quad_inputs(name, dtype)
+            args = quad_inputs(name, dtype, shape)
             before = counts_of[name][name]
             out_k = kern(*args)
             torch.cuda.synchronize()
@@ -2198,13 +2208,26 @@ def main() -> int:
             check(bool(torch.isfinite(out_k).all()), f"{name} not finite")
             err = float((out_k - out_p).abs().max())
             scale = float(out_p.abs().max())
-            quad_errs[(name, dname)] = err
-            print(f"[parity] {name} {dname} C={args[1].shape[0]} "
-                  f"max_abs_err={err:.3e} max|plain|={scale:.3e} "
-                  f"rel={err / scale:.3e} (tol {TOLERANCE[dname]:.0e})",
-                  flush=True)
+            quad_errs[(name, label, dname)] = err
+            note = ""
+            if name != "tet10_apply":
+                # each Ke kernel repeats its bits; the hex8 / tet10 one
+                # writes each block's transpose, so its Ke is exactly
+                # symmetric
+                again = kern(*args)
+                check(bool(torch.equal(out_k, again)),
+                      f"{name} {label} {dname}: a repeat differs")
+                sym = bool(torch.equal(out_k, out_k.transpose(1, 2)))
+                check(sym or name == "tet4_ke",
+                      f"{name} {label} {dname}: Ke is not symmetric")
+                note = f" symmetric={sym}"
+                del again
+            print(f"[parity] {name} {label or 'main'} {dname} "
+                  f"C={args[1].shape[0]} max_abs_err={err:.3e} "
+                  f"max|plain|={scale:.3e} rel={err / scale:.3e} "
+                  f"(tol {TOLERANCE[dname]:.0e})" + note, flush=True)
             check(err <= TOLERANCE[dname] * scale,
-                  f"{name} {dname} disagrees with its plain version")
+                  f"{name} {label} {dname} disagrees with its plain version")
             del out_k, out_p, args
     # B7 on a small batch, the Tet4 fixture at order 2 (8,121 elements,
     # tiles of 32), in float64: its sliver elements leave the float32
@@ -2386,14 +2409,17 @@ def main() -> int:
 
     etype_of = {"tet4_ke": ("tet4", 1), "hex8_ke": ("hex8", 2),
                 "tet10_ke": ("tet10", 2), "tet10_apply": ("tet10", 2)}
-    for name, (kern, plain) in quad_fns.items():
-        rec = {"name": name, "route": "cuda",
-               "source": SOURCE if name == "tet10_apply" else KE_SOURCE,
-               "replaces": REPLACES[name],
-               "launches": main_path_launches[name]}
+    quad_recs = {}
+    for name, label, shape in quad_cases:
+        kern, plain = quad_fns[name]
+        rec = quad_recs.setdefault(name, {
+            "name": name, "route": "cuda",
+            "source": SOURCE if name == "tet10_apply" else KE_SOURCE,
+            "replaces": REPLACES[name],
+            "launches": main_path_launches[name]})
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).split(".")[1]
-            args = quad_inputs(name, dtype)
+            args = quad_inputs(name, dtype, shape)
             coords, conn, lam, mu = args[0], args[1], args[-2], args[-1]
             C, k = conn.shape
             item = coords.element_size()
@@ -2429,20 +2455,21 @@ def main() -> int:
                 # a few products per graph: each allocates its output
                 "library_ms": time_ms(lambda: torch.bmm(*lib_args),
                                       inner=4, graph=True),
-                "max_abs_err": quad_errs[(name, dname)],
+                "max_abs_err": quad_errs[(name, label, dname)],
                 "eager_ms": time_ms(lambda: kern(*args)),
             }
             del lib_args, args
             torch.cuda.empty_cache()
-            print(f"[time] {name} {dname} C={C} " + " ".join(
-                f"{key}={val}" for key, val in vals.items())
-                + f" library_rel_err={lib_err:.2e}", flush=True)
-            if dtype == torch.float32:
-                rec.update(vals)
+            print(f"[time] {name} {label or 'main'} {dname} C={C} "
+                  + " ".join(f"{key}={val}" for key, val in vals.items())
+                  + f" library_rel_err={lib_err:.2e}", flush=True)
+            # the main shape's float32 keys are unsuffixed
+            sfx = ("" if dtype == torch.float32 else "_fp64") + (
+                f"_{label}" if label else "")
+            rec.update({f"{key}{sfx}": val for key, val in vals.items()})
+            if not sfx:
                 rec["dtype"] = "float32"
-            else:
-                rec.update({f"{key}_fp64": val for key, val in vals.items()})
-        records.append(rec)
+    records.extend(quad_recs.values())
     for name in quad_fns:
         check(main_path_launches[name] > 0,
               f"{name} was not launched on the main path")

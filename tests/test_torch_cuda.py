@@ -157,9 +157,10 @@ def test_stencil_kernel_matches_plain_version(cuda, kernel, dims, simp,
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_stencil_kernels_agree_within_tolerance(cuda, dtype):
-    """The plane kernel (six-tet cell form) and the window kernel (Ke) sum in
-    different orders: each within the tolerance of the plain version and
-    of the other, each bit for bit its own repeat."""
+    """The plane kernel (a march along z) and the window kernel (3-D
+    tiles) compute the same cell forces and sum every node in the same
+    order: each within the tolerance of the plain version, each bit for
+    bit its own repeat and the other's output."""
     args, table = _stencil_inputs((37, 6, 9), dtype, cuda, simp=True)
     a = stencil.stencil_matvec(*args, kernel="plane", table=table)
     b = stencil.stencil_matvec(*args, kernel="window", table=table)
@@ -167,7 +168,7 @@ def test_stencil_kernels_agree_within_tolerance(cuda, dtype):
     scale = float(ref.abs().max())
     for out in (a, b):
         assert float((out - ref).abs().max()) <= TOL[dtype] * scale
-    assert float((a - b).abs().max()) <= TOL[dtype] * scale
+    assert torch.equal(a, b)
     assert torch.equal(a, stencil.stencil_matvec(*args, kernel="plane",
                                                  table=table))
     assert torch.equal(b, stencil.stencil_matvec(*args, kernel="window",
@@ -198,6 +199,39 @@ def test_stencil_plane_z_chunks_give_the_same_bits(cuda, dtype):
     ref = stencil.stencil_matvec_reference(*args)
     assert float((outs[0] - ref).abs().max()) \
         <= TOL[dtype] * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("simp", [False, True], ids=["uniform", "simp"])
+@pytest.mark.parametrize("dims", [(1, 1, 1), (7, 5, 3), (7, 7, 3),
+                                  (8, 8, 4), (50, 16, 4), (23, 9, 13)])
+def test_stencil_window_gives_the_plane_kernels_bits(cuda, dims, simp,
+                                                     dtype):
+    """B10's 3-D tiles (7 x 7 x 3 nodes each) on one cell, boxes of
+    exactly one tile of nodes and one node more, the coarsest smoothed
+    level and tiles cut at every face: the plane kernel's bits, repeated
+    launch to launch, and one launch each."""
+    args, table = _stencil_inputs(dims, dtype, cuda, simp)
+    before = dict(stencil.LAUNCHES)
+    w1 = stencil.stencil_matvec(*args, kernel="window", table=table)
+    w2 = stencil.stencil_matvec(*args, kernel="window", table=table)
+    p = stencil.stencil_matvec(*args, kernel="plane", table=table)
+    torch.cuda.synchronize()
+    assert stencil.LAUNCHES["stencil_window"] == before["stencil_window"] + 2
+    assert stencil.LAUNCHES["stencil_plane"] == before["stencil_plane"] + 1
+    assert torch.equal(w1, w2) and torch.equal(w1, p)
+    ref = stencil.stencil_matvec_reference(*args)
+    assert float((w1 - ref).abs().max()) <= TOL[dtype] \
+        * float(ref.abs().max())
+
+
+def test_stencil_window_needs_the_cell_table(cuda):
+    (u, esc, ke, dims), _ = _stencil_inputs((6, 4, 2), torch.float64, cuda,
+                                            True)
+    before = dict(stencil.LAUNCHES)
+    with pytest.raises(ValueError, match="cell table"):
+        stencil.stencil_matvec(u, esc, ke, dims, kernel="window")
+    assert stencil.LAUNCHES == before
 
 
 def test_stencil_kernel_choice_follows_the_environment(cuda, monkeypatch):
@@ -425,6 +459,41 @@ def test_ke_kernel_matches_plain_version(cuda, element_type, dtype):
     assert out.shape == ref.shape == (conn.shape[0], 3 * k, 3 * k)
     scale = float(ref.abs().max())
     assert float((out - ref).abs().max()) <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 75])
+def test_hex8_ke_is_symmetric_and_repeats(cuda, n, dtype):
+    """The hex8 kernel computes the node pairs i <= j and writes each
+    block's transpose: Ke bit for bit symmetric, equal to the plain
+    version, the same bits launch to launch, on batches of one block of
+    elements, less, one more and several (a ragged last block)."""
+    from topopteval_tpu_torch.ops import ke_kernels as kk
+    coords, conn, _, lam, mu = _curved_inputs("hex8", dtype, cuda, nx=5,
+                                              ny=5, nz=3)
+    args = (coords, conn[:n].contiguous(), lam[:n].contiguous(),
+            mu[:n].contiguous())
+    out, again = kk.hex8_ke(*args), kk.hex8_ke(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out, out.transpose(1, 2))
+    ref = kk.hex8_ke_reference(*args)
+    assert float((out - ref).abs().max()) <= TOL[dtype] \
+        * float(ref.abs().max())
+
+
+def test_hex8_ke_degenerate_element_as_plain(cuda):
+    """An element flattened onto z = 0 (det 0 at every point, the guard
+    takes 1/det as 1, w det is 0) comes out as the plain version's: all
+    zeros."""
+    from topopteval_tpu_torch.ops import ke_kernels as kk
+    coords, conn, _, lam, mu = _curved_inputs("hex8", torch.float64, cuda)
+    coords = coords.clone()
+    coords[conn[2].long(), 2] = 0.0
+    out = kk.hex8_ke(coords, conn, lam, mu)
+    ref = kk.hex8_ke_reference(coords, conn, lam, mu)
+    assert bool((ref[2] == 0).all()) and bool((out[2] == 0).all())
+    assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
 
 def test_element_stiffness_dispatch_on_cuda(cuda):

@@ -27,6 +27,19 @@ kernels' order, and held to the plain versions and to the JAX package:
   every W, empty rows, a window cut to kc = 1, columns at or past the
   vector's end, 997 rows and both layouts; in float32 the bits do not
   depend on how the rows are split into blocks, only on S and W;
+- B8's Ke kernel (``sym_ke_kernel``, hex8 and tet10) computes the node
+  pairs i <= j (two multiply-adds an entry from lw g_i and mw g_i) and
+  writes each block and its transpose: the emulation, in the kernel's
+  order, against ``hex8_ke_reference`` / ``tet10_ke_reference`` and the
+  TPU kernel ``_make_iso_ke_kernel_stream`` (what
+  ``hex8_``/``tet10_element_stiffness_pallas`` run) within 1e-12 of the
+  largest entry in float64; against the same sums over every pair to
+  rounding, and exactly symmetric where those are not; a flattened
+  element gives the plain version's zeros; the pair index covers each
+  i <= j once for hex8 and tet10.  The TPU kernel runs as a
+  kernel body on NumPy arrays standing in for its refs, as in
+  tests/test_torch_quadratic.py: in interpret mode it compiles for
+  minutes on this CPU;
 - the A/B tool's ablation edits apply to this tree's sources (its tet4
   and hex8 designs: tests/test_torch_element_designs.py; B3's:
   tests/test_torch_stencil_designs.py).
@@ -43,11 +56,13 @@ import scipy.sparse as sp
 import torch
 
 from topopteval_tpu.ops import elements as jax_elements
+from topopteval_tpu.ops import pallas_kernels as jax_pk
 import topopteval_tpu_torch as tt
 from topopteval_tpu_torch import _build
 from topopteval_tpu_torch.ops import bell
 from topopteval_tpu_torch.ops import element_kernels as ek
 from topopteval_tpu_torch.ops import ell
+from topopteval_tpu_torch.ops import ke_kernels as kk
 from topopteval_tpu_torch.ops.elements import QUADRATURE, element_tables
 from topopteval_tpu_torch.tools import kernel_ab
 
@@ -547,6 +562,184 @@ def test_sell_wrapper_on_the_cpu_is_the_plain_version():
 
 
 # ---------------------------------------------------------------------------
+# B8 hex8: the node pairs i <= j and their transposes
+# ---------------------------------------------------------------------------
+
+
+def node_pair(p, K):
+    """csrc/element_ke.cu ``node_pair``: pair index p -> (i, j), i <= j,
+    row by row."""
+    i = 0
+    while p >= K - i:
+        p -= K - i
+        i += 1
+    return i, i + p
+
+
+def emulate_sym_ke(coords_e, lam, mu, element_type="hex8", full=False):
+    """``sym_ke_kernel`` on every element at once (coords_e [C, K, 3]):
+    J (a sum over the nodes in order), adjugate J^-1 with the
+    det == 0 -> 1 guard, w det and g per point; then for each node pair
+    i <= j its 3x3 block summed over the points in the kernel's order
+    (lw g_i, mw g_i, two multiply-adds an entry, mw g_i . g_j on the
+    diagonal), written at (i, j) and, for i != j, transposed at (j, i); a
+    diagonal block takes its upper triangle for both halves.  ``full``:
+    the same sums for every pair (i, j) and entry, no transposes."""
+    _, dN, w = element_tables(element_type, 2)
+    C, K, _ = coords_e.shape
+    NQ = len(w)
+    dt = coords_e.dtype
+    dN, w = dN.astype(dt), w.astype(dt)
+    x = coords_e
+    g = np.zeros((NQ, K, 3, C), dt)
+    lw, mw = np.zeros((NQ, C), dt), np.zeros((NQ, C), dt)
+    for q in range(NQ):
+        J = [[None] * 3 for _ in range(3)]
+        for a in range(3):
+            for b in range(3):
+                acc = np.zeros(C, dt)
+                for k in range(K):
+                    acc = acc + x[:, k, a] * dN[q, k, b]
+                J[a][b] = acc
+        A = J[1][1] * J[2][2] - J[1][2] * J[2][1]
+        B = J[0][2] * J[2][1] - J[0][1] * J[2][2]
+        Cc = J[0][1] * J[1][2] - J[0][2] * J[1][1]
+        det = J[0][0] * A + J[1][0] * B + J[2][0] * Cc
+        idet = dt.type(1) / np.where(det == 0, dt.type(1), det)
+        inv = [[A * idet, B * idet, Cc * idet],
+               [(J[1][2] * J[2][0] - J[1][0] * J[2][2]) * idet,
+                (J[0][0] * J[2][2] - J[0][2] * J[2][0]) * idet,
+                (J[0][2] * J[1][0] - J[0][0] * J[1][2]) * idet],
+               [(J[1][0] * J[2][1] - J[1][1] * J[2][0]) * idet,
+                (J[0][1] * J[2][0] - J[0][0] * J[2][1]) * idet,
+                (J[0][0] * J[1][1] - J[0][1] * J[1][0]) * idet]]
+        wdet = w[q] * det
+        lw[q], mw[q] = lam * wdet, mu * wdet
+        for k in range(K):
+            d = dN[q, k]
+            for a in range(3):
+                g[q, k, a] = d[0] * inv[0][a] + d[1] * inv[1][a] \
+                    + d[2] * inv[2][a]
+    Ke = np.full((C, 3 * K, 3 * K), np.nan, dt)
+    pairs = ([(i, j) for i in range(K) for j in range(K)] if full else
+             [node_pair(p, K) for p in range(K * (K + 1) // 2)])
+    for i, j in pairs:
+        acc = np.zeros((3, 3, C), dt)
+        for q in range(NQ):
+            li, mi, gj = lw[q] * g[q, i], mw[q] * g[q, i], g[q, j]
+            d = mi[0] * gj[0] + mi[1] * gj[1] + mi[2] * gj[2]
+            for a in range(3):
+                for b in range(3):
+                    acc[a, b] = acc[a, b] + li[a] * gj[b]
+                    acc[a, b] = acc[a, b] + mi[b] * gj[a]
+                acc[a, a] = acc[a, a] + d
+        for a in range(3):
+            for b in range(3):
+                v = acc[b, a] if i == j and b < a and not full \
+                    else acc[a, b]
+                Ke[:, 3 * i + a, 3 * j + b] = v
+                if i != j and not full:
+                    Ke[:, 3 * j + b, 3 * i + a] = v
+    return Ke
+
+
+def _curved_hex(nx, ny, nz, seed):
+    rng = np.random.default_rng(seed)
+    mesh = tt.generate_grid_hex(nx, ny, nz, (0, 0, 0),
+                                (2.0 * nx, 1.5 * ny, 1.0 * nz))
+    coords = mesh.coords + rng.uniform(-0.15, 0.15, mesh.coords.shape)
+    C = mesh.n_cells
+    return (coords, mesh.conn.astype(np.int32), rng.uniform(0.1, 2.0, C),
+            rng.uniform(0.1, 2.0, C))
+
+
+def _jax_iso_ke_body(coords_e, lam, mu, element_type="hex8"):
+    """The TPU kernel of hex8_/tet10_element_stiffness_pallas (the stream
+    variant) run once over the whole batch on NumPy arrays in its lane
+    layout ([3k, C] coordinates, [1, C] materials, [9k^2, C] out)."""
+    dn, w = jax_pk._iso_tables(element_type)
+    C, k = coords_e.shape[:2]
+    out = np.zeros((9 * k * k, C))
+    jax_pk._make_iso_ke_kernel_stream(dn, w, k)(
+        np.ascontiguousarray(coords_e.reshape(C, -1).T), lam[None, :],
+        mu[None, :], out)
+    return out.T.reshape(C, 3 * k, 3 * k)
+
+
+@pytest.mark.parametrize("n_cells", [1, 7, 9, 30])
+def test_b8_hex8_pairs_match_plain_and_jax(n_cells):
+    """C = 1, under one block of 8, one more, and a ragged last block."""
+    coords, conn, lam, mu = _curved_hex(5, 3, 2, seed=n_cells)
+    conn, lam, mu = conn[:n_cells], lam[:n_cells], mu[:n_cells]
+    got = emulate_sym_ke(coords[conn], lam, mu)
+    plain = kk.hex8_ke_reference(*(torch.from_numpy(a) for a in (
+        coords, conn, lam, mu))).numpy()
+    ref = _jax_iso_ke_body(coords[conn], lam, mu)
+    scale = np.abs(plain).max()
+    assert np.abs(got - plain).max() <= 1e-12 * scale
+    assert np.abs(got - ref).max() <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("n_cells", [1, 9, 40])
+def test_b8_tet10_pairs_match_plain_and_jax(n_cells):
+    """tet10 runs the same kernel (E 8): curved elements, C = 1, one block
+    and one more, a ragged last block."""
+    coords, conn, _, lam, mu = _curved(4, 2, 2, seed=n_cells)
+    conn, lam, mu = conn[:n_cells], lam[:n_cells], mu[:n_cells]
+    got = emulate_sym_ke(coords[conn], lam, mu, "tet10")
+    plain = kk.tet10_ke_reference(*(torch.from_numpy(a) for a in (
+        coords, conn, lam, mu))).numpy()
+    ref = _jax_iso_ke_body(coords[conn], lam, mu, "tet10")
+    scale = np.abs(plain).max()
+    assert np.array_equal(got, got.transpose(0, 2, 1))
+    assert np.abs(got - plain).max() <= 1e-12 * scale
+    assert np.abs(got - ref).max() <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_b8_hex8_transposes_agree_with_the_full_loop(dtype):
+    """The i <= j blocks and their transposes against the same sums over
+    every pair (i, j) and every entry: equal to the rounding of the pair
+    sums, and exactly symmetric, where the full loop is not."""
+    coords, conn, lam, mu = _curved_hex(3, 2, 2, seed=4)
+    ce = coords[conn].astype(dtype)
+    lam, mu = lam.astype(dtype), mu.astype(dtype)
+    half = emulate_sym_ke(ce, lam, mu)
+    full = emulate_sym_ke(ce, lam, mu, full=True)
+    assert half.dtype == dtype and not np.isnan(half).any()
+    assert np.array_equal(half, half.transpose(0, 2, 1))
+    assert not np.array_equal(full, full.transpose(0, 2, 1))
+    eps = np.finfo(dtype).eps
+    assert np.abs(half - full).max() <= 8 * eps * np.abs(full).max()
+
+
+def test_b8_hex8_flat_element_as_plain():
+    """An element flattened onto z = 0: det 0 at every point, the guard
+    takes 1/det as 1, w det is 0 and Ke is zero, as in the plain
+    version."""
+    coords, conn, lam, mu = _curved_hex(2, 1, 1, seed=6)
+    coords = coords.copy()
+    coords[conn[1], 2] = 0.0
+    got = emulate_sym_ke(coords[conn], lam, mu)
+    plain = kk.hex8_ke_reference(*(torch.from_numpy(a) for a in (
+        coords, conn, lam, mu))).numpy()
+    assert np.all(got[1] == 0) and np.all(plain[1] == 0)
+    assert np.abs(got - plain).max() <= 1e-12 * np.abs(plain).max()
+
+
+@pytest.mark.parametrize("K", [8, 10])
+def test_b8_pair_index_covers_each_pair_once(K):
+    """The kernel's pair index walks i <= j row by row, each pair once;
+    both element types run the one kernel in both types."""
+    pairs = [node_pair(p, K) for p in range(K * (K + 1) // 2)]
+    assert pairs == [(i, j) for i in range(K) for j in range(i, K)]
+    src = open(os.path.join(_build.CSRC_DIR, "element_ke.cu")).read()
+    NQ = {8: 8, 10: 4}[K]
+    for t in ("float", "double"):
+        assert f"launch_sym_ke<{t}, {K}, {NQ}," in src
+
+
+# ---------------------------------------------------------------------------
 # the build helper and the A/B tool
 # ---------------------------------------------------------------------------
 
@@ -562,7 +755,8 @@ def test_build_names_other_sources_by_their_text(tmp_path):
     assert _build.build([]) == {}      # nothing to build: no nvcc needed
 
 
-@pytest.mark.parametrize("group", ["element", "stencil", "csr", "window"])
+@pytest.mark.parametrize("group", ["element", "stencil", "csr", "window",
+                                   "stencil_window", "hex8_ke"])
 def test_ablation_edits_apply_to_this_tree(group):
     src = kernel_ab.ABLATED_SOURCE[group]
     text = open(os.path.join(_build.CSRC_DIR, f"{src}.cu")).read()
@@ -577,3 +771,5 @@ def test_ablation_edits_apply_to_this_tree(group):
         kernel_ab.ablated_source(text, [("no such line", "x")])
     if group == "stencil":
         assert set(kernel_ab.STENCIL_TILES) <= set(variants)
+    if group == "stencil_window":
+        assert set(kernel_ab.WINDOW_TILES) <= set(variants)

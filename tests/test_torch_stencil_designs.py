@@ -20,6 +20,16 @@ held to the plain version and to the JAX package:
   recomputes the cell layer below its first plane);
 - the per-level cell table: the operator's six tets are the path tets of
   its 1/dx, 1/dy, 1/dz, and vol*lam, vol*mu are its own.
+
+And of the z-blocked apply (B10 ``stencil_window``), which takes B3's
+cell forces and node order over 3-D tiles of cells with no march
+(csrc/stencil_apply.cu ``stencil_window_kernel``): each tile of WX x WY x
+WZ cells computes its cells' forces (zero outside the box) and the nodes
+after its first column, row and layer; emulated tile by tile, it equals
+the plain version and the JAX window kernel in interpret mode within
+1e-12 in float64, B3's emulation bit for bit, and gives the same bits for
+every tile size; the wrapper raises for the window kernel without the
+cell table.
 """
 
 import numpy as np
@@ -124,6 +134,53 @@ def emulate_plane(u, esc, table, dims, zn=None):
             ptop = node_sum(F, 4, NY, NX)
             for j in (5, 6, 7):
                 ptop = ptop + node_sum(F, j, NY, NX)
+    return y.reshape(-1)
+
+
+#: csrc/stencil_apply.cu WX, WY, WZ: the cells of a B10 tile
+WINDOW_TILE = (8, 8, 4)
+
+
+def emulate_window(u, esc, table, dims, tile=WINDOW_TILE):
+    """``stencil_window_kernel``: tiles of ``tile`` cells (x, y, z), the
+    first at cell (-1, -1, -1), each owning the nodes after its first
+    column, row and layer; a tile's cells outside the box add zero; a
+    node sums corners 0-3 of its own cell layer in order, then adds the
+    sum of corners 4-7 of the layer below in order."""
+    nx, ny, nz = dims
+    NX, NY, NZ = nx + 1, ny + 1, nz + 1
+    WX, WY, WZ = tile
+    U = u.reshape(NZ, NY, NX, 3)
+    # every cell's forces [nz, 8, ny, nx, 3] (a cell's forces do not
+    # depend on the tile that computes it)
+    F = np.stack([cell_layer(U, esc, table, dims, cz) for cz in range(nz)])
+    y = np.full_like(U, np.nan)
+    for z0 in range(0, NZ, WZ - 1):
+        for y0 in range(0, NY, WY - 1):
+            for x0 in range(0, NX, WX - 1):
+                # the tile's forces, zero outside the box:
+                # [WZ, 8, WY, WX, 3] for cells (z0-1+lz, y0-1+ly, x0-1+lx)
+                T = np.zeros((WZ, 8, WY, WX, 3), U.dtype)
+                for lz in range(WZ):
+                    cz = z0 - 1 + lz
+                    if not 0 <= cz < nz:
+                        continue
+                    ys = slice(max(y0 - 1, 0), min(y0 - 1 + WY, ny))
+                    xs = slice(max(x0 - 1, 0), min(x0 - 1 + WX, nx))
+                    T[lz, :, ys.start - y0 + 1:ys.stop - y0 + 1,
+                      xs.start - x0 + 1:xs.stop - x0 + 1] = F[cz, :, ys, xs]
+                for lz in range(1, WZ):
+                    for ly in range(1, WY):
+                        for lx in range(1, WX):
+                            z, yy, x = z0 - 1 + lz, y0 - 1 + ly, x0 - 1 + lx
+                            if z >= NZ or yy >= NY or x >= NX:
+                                continue
+                            c = [T[lz - oz, j, ly - oy, lx - ox] for j, (
+                                oz, oy, ox) in enumerate(CORNER_OFFSETS)]
+                            top = c[4] + c[5] + c[6] + c[7]
+                            acc = c[0] + c[1] + c[2] + c[3]
+                            assert np.isnan(y[z, yy, x]).all()
+                            y[z, yy, x] = acc + top
     return y.reshape(-1)
 
 
@@ -234,3 +291,78 @@ def test_b3_wrapper_checks_the_table_on_the_cpu():
     with pytest.raises(ValueError, match="contiguous"):
         stencil.stencil_matvec(*args, table=torch.zeros(10,
                                dtype=torch.float64)[::2])
+
+
+# ---------------------------------------------------------------------------
+# B10: the z-blocked apply over 3-D tiles
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("simp", [False, True], ids=["uniform", "simp"])
+@pytest.mark.parametrize("dims,box", [
+    ((1, 1, 1), (0.7, 0.5, 0.3)),
+    ((7, 5, 3), (3.5, 2.0, 0.9)),
+    ((15, 8, 7), (7.5, 2.4, 1.4)),      # tiles cut at every face
+    ((6, 4, 5), (1.2, 3.1, 0.4)),       # dx, dy, dz far apart
+])
+def test_b10_tiles_match_plain_version_and_jax_window(dims, box, simp,
+                                                      monkeypatch):
+    op, u = _case(dims, box, simp)
+    esc = None if op.escale is None else op.escale.numpy()
+    got = emulate_window(u.numpy(), esc, op.table.numpy(), dims)
+    ref = stencil_matvec_reference(u, op.escale, op.ke, dims).numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() <= 1e-12 * scale
+    # the TPU kernel B10 replaces, in interpret mode
+    monkeypatch.setenv("TOPOPT_STENCIL_KERNEL", "window")
+    jax_out = np.asarray(jax_stencil_matvec(
+        u.numpy(), esc, op._hex_ke(), dims, interpret=True))
+    assert np.abs(got - jax_out).max() <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dims", [(7, 5, 3), (15, 8, 7), (25, 8, 2)])
+def test_b10_gives_b3s_bits(dims, dtype):
+    """The same cell forces, the same order of every node's sum: B10's
+    tiles and B3's march agree bit for bit (float32 too)."""
+    for simp in (False, True):
+        op, u = _case(dims, (60.0, 20.0, 4.0), simp, dtype)
+        args = (u.numpy(), None if op.escale is None else op.escale.numpy(),
+                op.table.numpy(), op.dims)
+        window = emulate_window(*args)
+        assert window.dtype == u.numpy().dtype
+        assert np.array_equal(window, emulate_plane(*args))
+
+
+def test_b10_any_tile_gives_the_same_bits():
+    """A node's sum is fixed by the box alone: every tile size gives the
+    same float32 bits, cut or whole at every face."""
+    op, u = _case((13, 9, 6), (4.5, 1.6, 2.1), True, torch.float32)
+    args = (u.numpy(), op.escale.numpy(), op.table.numpy(), op.dims)
+    first = emulate_window(*args)
+    assert not np.isnan(first).any()
+    for tile in ((16, 8, 4), (2, 2, 2), (3, 5, 2), (16, 4, 4), (8, 8, 8),
+                 (14, 10, 7)):
+        assert np.array_equal(emulate_window(*args, tile=tile), first)
+
+
+def test_b10_wrapper_needs_the_cell_table():
+    """Off the CPU both kernels need the cell table; the check comes
+    before the device's (a tensor on the meta device shows it here)."""
+    op, u = _case((3, 2, 2), (1.0, 1.0, 1.0), True)
+    meta = [t.to("meta") for t in (u, op.escale, op.ke, op.table)]
+    for kernel in stencil.KERNELS:
+        with pytest.raises(ValueError, match="cell table"):
+            stencil.stencil_matvec(*meta[:3], op.dims, kernel)
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            stencil.stencil_matvec(*meta[:3], op.dims, kernel,
+                                   table=meta[3])
+    # the CPU runs the plain version, with or without the table
+    stencil.reset_launch_counts()
+    for table in (None, op.table):
+        torch.testing.assert_close(
+            stencil.stencil_matvec(u, op.escale, op.ke, op.dims, "window",
+                                   table=table),
+            stencil_matvec_reference(u, op.escale, op.ke, op.dims),
+            rtol=0, atol=0)
+    assert stencil.LAUNCHES == {"stencil_plane": 0, "stencil_window": 0}

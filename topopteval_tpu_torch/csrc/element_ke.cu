@@ -21,8 +21,8 @@
 //   entries, so every store of a warp is one coalesced 128 B (fp32)
 //   line.  The entry's (i, a, j, b) come from its index.
 //
-// iso_ke<K, NQ>  replaces _make_iso_ke_kernel (pallas_kernels.py:381) and
-//          _make_iso_ke_kernel_stream (:425), via _iso_ke :509,
+// sym_ke<K, NQ, E>  replaces _make_iso_ke_kernel (pallas_kernels.py:381)
+//          and _make_iso_ke_kernel_stream (:425), via _iso_ke :509,
 //          hex8_element_stiffness_pallas :556 and
 //          tet10_element_stiffness_pallas :568.  Both TPU kernels compute
 //          the same function (the stream variant only works around Mosaic
@@ -35,18 +35,32 @@
 //          no constant-J shortcut, since tet10 mid-edge nodes may be
 //          curved.
 //   Bound: memory.  Ke is 9k^2 values per element (hex8 2,304 B, tet10
-//   3,600 B fp32) against ~20-30 B of node rows, conn and material; the
-//   arithmetic (about 9k^2 NQ 5 flops) stays under the write time at
-//   fp32.  At 153,600 tet10 elements: 553 MB of Ke, 0.165 ms.
+//   3,600 B fp32) against ~20-30 B of node rows, conn and material.  At
+//   153,600 tet10 elements: 553 MB of Ke, 0.165 ms.  The arithmetic is
+//   not far behind in float64: the least formulation (chip_smoke.py) is
+//   18,264 flops a hex8, 0.014 ms at 34 TFLOP/s for the 25,600-hex box
+//   against 0.036 of bytes.
 //   Design: the trap the TPU kernel hit is register pressure: one thread
-//   per element would keep 9k^2 = 900 (tet10) accumulators live.  Here a
-//   block takes ISO_KE_ELEMS elements; phase 1 puts every point's J^-1
-//   and w det into shared memory, phase 2 every point's physical
-//   gradients g [NQ][K][3]; phase 3 gives one thread each (element, node
-//   pair i, j), which sums its own 3x3 block over the points in 9
-//   registers and writes it once.  Consecutive threads take consecutive
-//   j, so a warp's stores cover runs of 3k values of one Ke row.
-//
+//   per element would keep 9k^2 = 900 (tet10) accumulators live.  A block
+//   takes E elements; phase 1 puts every point's J^-1 and w det into
+//   shared memory, phase 2 every point's physical gradients
+//   g [NQ][K][3]; phase 3 gives one thread each (element, node pair
+//   i <= j): E k(k+1)/2 threads (hex8 288 at E 8).  Per point it forms
+//   lw g_i and mw g_i once and adds two multiply-adds an entry and the
+//   mu g_i . g_j term on the diagonal, sums its 3x3 block over the points
+//   in 9 registers, and writes the block and its transpose at (j, i) (a
+//   diagonal block its upper triangle twice) into the block's Ke in
+//   shared memory, so Ke is exactly symmetric; the block then stores its
+//   contiguous run of E Ke with 16-byte coalesced stores.
+//   The earlier kernel (every pair i, j, five operations an entry and the
+//   pair's dot product, 256 threads for 8 elements, each block written
+//   from registers at a stride of 3) took 0.01325 ms float32 and 0.01793
+//   float64 for hex8 at the SIMP Hex8 fixture (4,800 hexes; 27 / 39 % of
+//   the bound) and 0.299 / 0.662 for tet10 at 153,600 elements (NVIDIA
+//   H100 80GB HBM3 at 700 W, PERF.md); in float64 its pair sums, not its
+//   stores, held it.  This one takes 0.0090 / 0.0151 and 0.223 / 0.396
+//   in turns with it (tools/kernel_ab.py).
+
 // tet4_ke_cse, tet4_ke_lanes  replace make_variant over _tet4_ke_kernel_cse
 //          (:27) and _tet4_ke_kernel_stack (:48) of tools/tpu_ke_probe.py:71,
 //          the TPU probe of two formulations of tet4_ke's function.  Both
@@ -78,12 +92,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int TET4_KE_ELEMS = 128;
 constexpr int TET4_KE_THREADS = 256;
-constexpr int ISO_KE_ELEMS = 8;
-constexpr int ISO_KE_THREADS = 256;
+// elements a sym_ke block takes: hex8 in float32 and float64, tet10
+constexpr int HEX_KE_ELEMS_F32 = 8, HEX_KE_ELEMS_F64 = 4;
+constexpr int TET10_KE_ELEMS = 4;
 
 template <typename T>
 __global__ void __launch_bounds__(TET4_KE_THREADS)
@@ -153,26 +170,45 @@ tet4_ke_kernel(const T* __restrict__ coords, const int* __restrict__ conn,
     }
 }
 
-template <typename T, int K, int NQ>
-__global__ void __launch_bounds__(ISO_KE_THREADS)
-iso_ke_kernel(const T* __restrict__ coords, const int* __restrict__ conn,
+// The node pair (i, j), i <= j, of pair index p = 0 .. K(K+1)/2 - 1, row
+// by row: (0, 0), (0, 1), ..., (0, K-1), (1, 1), ...
+template <int K>
+__device__ __forceinline__ void node_pair(int p, int& i, int& j) {
+    i = 0;
+    while (p >= K - i) {
+        p -= K - i;
+        ++i;
+    }
+    j = i + p;
+}
+
+template <typename T, int K, int NQ, int E>
+__global__ void __launch_bounds__(E * K * (K + 1) / 2)
+sym_ke_kernel(const T* __restrict__ coords, const int* __restrict__ conn,
               const T* __restrict__ lam, const T* __restrict__ mu,
               const T* __restrict__ table, T* __restrict__ out, int64_t C) {
-    constexpr int EK = 3 * K;
-    __shared__ T s_dn[NQ][K][3];
-    __shared__ T s_w[NQ];
-    __shared__ T s_x[ISO_KE_ELEMS][K][3];
-    __shared__ T s_inv[ISO_KE_ELEMS][NQ][3][3];
-    __shared__ T s_lw[ISO_KE_ELEMS][NQ];
-    __shared__ T s_mw[ISO_KE_ELEMS][NQ];
-    __shared__ T s_g[ISO_KE_ELEMS][NQ][K][3];
-    const int64_t c0 = (int64_t)blockIdx.x * ISO_KE_ELEMS;
-    const int ne = (int)(C - c0 < ISO_KE_ELEMS ? C - c0 : ISO_KE_ELEMS);
+    constexpr int EK = 3 * K, KE = EK * EK, NP = K * (K + 1) / 2;
+    constexpr int NTH = E * NP;
+    // 16-byte vectors of T, for the coalesced store of the block's Ke
+    using V = typename std::conditional<sizeof(T) == 4, float4, double2>::type;
+    constexpr int VT = 16 / sizeof(T);
+    extern __shared__ __align__(16) unsigned char sym_ke_smem[];
+    T* s_ke = reinterpret_cast<T*>(sym_ke_smem);  // [E][KE]
+    T* next = s_ke + E * KE;
+    auto take = [&](int n) { T* p = next; next += n; return p; };
+    auto s_g = reinterpret_cast<T (*)[NQ][K][3]>(take(E * NQ * K * 3));
+    auto s_inv = reinterpret_cast<T (*)[NQ][3][3]>(take(E * NQ * 9));
+    auto s_x = reinterpret_cast<T (*)[K][3]>(take(E * K * 3));
+    auto s_dn = reinterpret_cast<T (*)[K][3]>(take(NQ * K * 3));
+    T* s_w = take(NQ);
+    auto s_lw = reinterpret_cast<T (*)[NQ]>(take(E * NQ));
+    auto s_mw = reinterpret_cast<T (*)[NQ]>(take(E * NQ));
+    const int64_t c0 = (int64_t)blockIdx.x * E;
+    const int ne = (int)(C - c0 < E ? C - c0 : E);
     const int tid = threadIdx.x;
-    for (int t = tid; t < NQ * K * 3; t += blockDim.x)
-        (&s_dn[0][0][0])[t] = table[t];
-    for (int t = tid; t < NQ; t += blockDim.x) s_w[t] = table[NQ * K * 3 + t];
-    for (int t = tid; t < ne * K; t += blockDim.x) {
+    for (int t = tid; t < NQ * K * 3; t += NTH) (&s_dn[0][0][0])[t] = table[t];
+    for (int t = tid; t < NQ; t += NTH) s_w[t] = table[NQ * K * 3 + t];
+    for (int t = tid; t < ne * K; t += NTH) {
         const int e = t / K, k = t - K * e;
         const int64_t n = conn[(c0 + e) * K + k];
 #pragma unroll
@@ -180,7 +216,7 @@ iso_ke_kernel(const T* __restrict__ coords, const int* __restrict__ conn,
     }
     __syncthreads();
     // phase 1: J, J^-1 and the weights at each (element, point)
-    for (int t = tid; t < ne * NQ; t += blockDim.x) {
+    for (int t = tid; t < ne * NQ; t += NTH) {
         const int e = t / NQ, q = t - NQ * e;
         T J[3][3];
 #pragma unroll
@@ -213,7 +249,7 @@ iso_ke_kernel(const T* __restrict__ coords, const int* __restrict__ conn,
     }
     __syncthreads();
     // phase 2: g[k][a] = sum_b dN[q][k][b] J^-1[b][a]
-    for (int t = tid; t < ne * NQ * K; t += blockDim.x) {
+    for (int t = tid; t < ne * NQ * K; t += NTH) {
         const int e = t / (NQ * K);
         const int r = t - NQ * K * e;
         const int q = r / K, k = r - K * q;
@@ -225,36 +261,66 @@ iso_ke_kernel(const T* __restrict__ coords, const int* __restrict__ conn,
                               dn[2] * inv[2][a];
     }
     __syncthreads();
-    // phase 3: one thread per (element, node pair), its 3x3 block summed
-    // over the points
-    for (int t = tid; t < ne * K * K; t += blockDim.x) {
-        const int e = t / (K * K);
-        const int p = t - K * K * e;
-        const int i = p / K, j = p - K * i;
+    // phase 3: one thread per (element, node pair i <= j), its 3x3 block
+    // summed over the points from lw g_i, mw g_i (two multiply-adds an
+    // entry, the mu g_i . g_j term on the diagonal); block (i, j) and its
+    // transpose at (j, i)
+    if (tid < ne * NP) {
+        const int e = tid / NP;
+        int i, j;
+        node_pair<K>(tid - NP * e, i, j);
         T acc[3][3];
 #pragma unroll
         for (int a = 0; a < 3; ++a)
 #pragma unroll
             for (int b = 0; b < 3; ++b) acc[a][b] = T(0);
-#pragma unroll 1
+#pragma unroll 2
         for (int q = 0; q < NQ; ++q) {
             const T* gi = s_g[e][q][i];
-            const T* gj = s_g[e][q][j];
             const T lw = s_lw[e][q], mw = s_mw[e][q];
-            const T d = mw * (gi[0] * gj[0] + gi[1] * gj[1] + gi[2] * gj[2]);
+            T li[3], mi[3], gj[3];
 #pragma unroll
-            for (int a = 0; a < 3; ++a)
+            for (int a = 0; a < 3; ++a) {
+                li[a] = lw * gi[a];
+                mi[a] = mw * gi[a];
+                gj[a] = s_g[e][q][j][a];
+            }
+            const T d = mi[0] * gj[0] + mi[1] * gj[1] + mi[2] * gj[2];
 #pragma unroll
-                for (int b = 0; b < 3; ++b)
-                    acc[a][b] += lw * (gi[a] * gj[b]) + mw * (gi[b] * gj[a]) +
-                                 (a == b ? d : T(0));
+            for (int a = 0; a < 3; ++a) {
+#pragma unroll
+                for (int b = 0; b < 3; ++b) {
+                    acc[a][b] += li[a] * gj[b];
+                    acc[a][b] += mi[b] * gj[a];
+                }
+                acc[a][a] += d;
+            }
         }
-        T* o = out + (c0 + e) * (EK * EK) + (3 * i) * EK + 3 * j;
+        // a diagonal block (i == j) takes its upper triangle for both
+        // halves: its (a, b) and (b, a) sums round apart
+        T* o = s_ke + e * KE;
 #pragma unroll
         for (int a = 0; a < 3; ++a)
 #pragma unroll
-            for (int b = 0; b < 3; ++b) o[a * EK + b] = acc[a][b];
+            for (int b = 0; b < 3; ++b) {
+                const T v = (i == j && b < a) ? acc[b][a] : acc[a][b];
+                o[(3 * i + a) * EK + 3 * j + b] = v;
+                if (i != j) o[(3 * j + b) * EK + 3 * i + a] = v;
+            }
     }
+    __syncthreads();
+    // the block's run of ne Ke, 16 bytes a thread and store
+    const V* src = reinterpret_cast<const V*>(s_ke);
+    V* dst = reinterpret_cast<V*>(out + c0 * KE);
+    for (int t = tid; t < ne * KE / VT; t += NTH) dst[t] = src[t];
+}
+
+// Shared memory of a sym_ke block: E Ke, then g, J^-1, the node rows,
+// the rule's table and the weights.
+template <typename T, int K, int NQ, int E>
+constexpr size_t sym_ke_smem() {
+    return sizeof(T) * ((size_t)E * 9 * K * K + E * NQ * K * 3 + E * NQ * 9 +
+                        E * K * 3 + NQ * K * 3 + NQ + 2 * E * NQ);
 }
 
 template <typename T>
@@ -266,20 +332,6 @@ int launch_tet4_ke(const void* coords, const void* conn, const void* lam,
                             (cudaStream_t)stream>>>(
             (const T*)coords, (const int*)conn, (const T*)lam, (const T*)mu,
             (T*)out, (int64_t)C);
-    }
-    return (int)cudaGetLastError();
-}
-
-template <typename T, int K, int NQ>
-int launch_iso_ke(const void* coords, const void* conn, const void* lam,
-                  const void* mu, const void* table, void* out, long long C,
-                  void* stream) {
-    if (C > 0) {
-        const long long blocks = (C + ISO_KE_ELEMS - 1) / ISO_KE_ELEMS;
-        iso_ke_kernel<T, K, NQ><<<(unsigned)blocks, ISO_KE_THREADS, 0,
-                                  (cudaStream_t)stream>>>(
-            (const T*)coords, (const int*)conn, (const T*)lam, (const T*)mu,
-            (const T*)table, (T*)out, (int64_t)C);
     }
     return (int)cudaGetLastError();
 }
@@ -432,6 +484,27 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                                 (int)bytes);
 }
 
+template <typename T, int K, int NQ, int E>
+int launch_sym_ke(const void* coords, const void* conn, const void* lam,
+                  const void* mu, const void* table, void* out, long long C,
+                  void* stream) {
+    constexpr size_t bytes = sym_ke_smem<T, K, NQ, E>();
+    static bool ready = false;
+    if (!ready) {
+        const cudaError_t err = allow_smem(sym_ke_kernel<T, K, NQ, E>, bytes);
+        if (err != cudaSuccess) return (int)err;
+        ready = true;
+    }
+    if (C > 0) {
+        const long long blocks = (C + E - 1) / E;
+        sym_ke_kernel<T, K, NQ, E><<<(unsigned)blocks, E * K * (K + 1) / 2,
+                                     bytes, (cudaStream_t)stream>>>(
+            (const T*)coords, (const int*)conn, (const T*)lam, (const T*)mu,
+            (const T*)table, (T*)out, (int64_t)C);
+    }
+    return (int)cudaGetLastError();
+}
+
 template <typename T, int E>
 int launch_tet4_ke_t1(bool cse, const void* ct, const void* lam2,
                       const void* mu2, void* out, long long Cp, void* stream) {
@@ -494,29 +567,29 @@ int tet4_ke_f64(const void* coords, const void* conn, const void* lam,
 int hex8_ke_f32(const void* coords, const void* conn, const void* lam,
                 const void* mu, const void* table, void* out, long long C,
                 void* stream) {
-    return launch_iso_ke<float, 8, 8>(coords, conn, lam, mu, table, out, C,
-                                      stream);
+    return launch_sym_ke<float, 8, 8, HEX_KE_ELEMS_F32>(coords, conn, lam, mu,
+                                                        table, out, C, stream);
 }
 
 int hex8_ke_f64(const void* coords, const void* conn, const void* lam,
                 const void* mu, const void* table, void* out, long long C,
                 void* stream) {
-    return launch_iso_ke<double, 8, 8>(coords, conn, lam, mu, table, out, C,
-                                       stream);
+    return launch_sym_ke<double, 8, 8, HEX_KE_ELEMS_F64>(coords, conn, lam, mu,
+                                                         table, out, C, stream);
 }
 
 int tet10_ke_f32(const void* coords, const void* conn, const void* lam,
                  const void* mu, const void* table, void* out, long long C,
                  void* stream) {
-    return launch_iso_ke<float, 10, 4>(coords, conn, lam, mu, table, out, C,
-                                       stream);
+    return launch_sym_ke<float, 10, 4, TET10_KE_ELEMS>(coords, conn, lam, mu,
+                                                       table, out, C, stream);
 }
 
 int tet10_ke_f64(const void* coords, const void* conn, const void* lam,
                  const void* mu, const void* table, void* out, long long C,
                  void* stream) {
-    return launch_iso_ke<double, 10, 4>(coords, conn, lam, mu, table, out, C,
-                                        stream);
+    return launch_sym_ke<double, 10, 4, TET10_KE_ELEMS>(coords, conn, lam, mu,
+                                                        table, out, C, stream);
 }
 
 // The probe variants (T1): ct [12, Cp], lam2 [1, Cp], mu2 [1, Cp] ->

@@ -9,9 +9,9 @@
 //
 // with Ke the assembled 24x24 stiffness of the hex's six tets (VTK
 // corner-major, k*3+b) and esc the per-hex scale grid [nz, ny, nx] (a null
-// pointer means 1).  The two kernels compute this function in two forms,
-// each in a fixed order (so each repeats its output bit for bit), and agree
-// with each other to rounding, not bit for bit.
+// pointer means 1).  The two kernels compute this function in one form,
+// through the hex's six tets, and sum every node in one fixed order: each
+// repeats its output bit for bit, and they give the same bits.
 //
 // stencil_plane   replaces _stencil_kernel (topopteval_tpu/ops/pallas_stencil.py:156,
 //                 via _stencil_matvec :219 and stencil_matvec :338), which
@@ -57,16 +57,26 @@
 //
 // stencil_window  replaces _window_kernel (pallas_stencil.py:97), the
 //                 z-blocked variant (NB planes per grid step).  Opt-in.
-//   Form: Ke, in shared memory (576 values in the working type, read at
-//   warp-uniform addresses), applied as 56 3x3 blocks a node to the 27 x 3
-//   neighbour differences u[m] - u[n], formed once a node in registers:
-//   inner sum per cell over k then b, times esc, cells in corner order j.
-//   Data flow: a block owns WIN_NB z-planes x WIN_TY x WIN_TX nodes, one
-//   thread a node; it first stages the tile of u with a one-node halo, and
-//   the touching esc cells, in shared memory, then each thread reads its
-//   neighbours from there (a warp along x reads with a stride of 3 values,
-//   coprime with the 32 banks).  0.039 ms float32, 0.048 float64 at
-//   200x64x16 (PERF.md): slower than stencil_plane, hence opt-in.
+//   Form: stencil_plane's cell form (cell_forces, the same cell table) and
+//   its node order: a node sums corners 0-3 of cell layer z in order, then
+//   adds the sum of corners 4-7 of layer z - 1 in order, so the two
+//   kernels give the same bits.
+//   Data flow: a block owns a WX x WY x WZ tile of cells, one thread a
+//   cell, and computes the (WX-1) x (WY-1) x (WZ-1) nodes after its first
+//   column, row and layer: it stages the WZ + 1 node planes it reads by
+//   cp.async (a row a warp) and its own cell's scale, computes every
+//   cell's bottom and top face forces into shared memory at once, and
+//   after one barrier each node sums its eight corners.  No march: a
+//   block waits on device memory once and on two barriers, where
+//   stencil_plane's march is a chain of dependent steps.  The price is
+//   the halo on three faces: 16 x 4 x 4 cells for 15 x 3 x 3 nodes
+//   compute 1.9x the box's cells (stencil_plane: 1.37x at 200x64x16).
+//   The earlier design (Ke as 56 3x3 blocks a node, 1,008 multiply-adds a
+//   node, one thread a node of a 32 x 2 x 4 tile) took 0.0387 ms float32
+//   and 0.0470 float64 at 200x64x16 (4.1 / 6.8 % of the bound; NVIDIA
+//   H100 80GB HBM3 at 700 W, PERF.md), this one 0.0148 / 0.0200 in turns
+//   with it (tools/kernel_ab.py): faster than stencil_plane at 100x32x8
+//   and 50x16x4, slower at 200x64x16.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,67 +90,23 @@ constexpr int CX = 16, CY = 8;
 constexpr int PT = CX * CY;
 // blocks an SM keeps (128 registers a thread at most)
 constexpr int MIN_BLOCKS = 512 / PT;
-// values a lane stages of a row of RX (RX <= 32 * ROW_STEPS)
 constexpr int NT = 5;
 constexpr int RX = 3 * (CX + 1);   // values in a staged row of nodes
 constexpr int RY = CY + 1;         // staged rows of a plane
-constexpr int ROW_STEPS = (RX + 31) / 32;
-constexpr int WIN_TX = 32;   // nodes per tile along x (one warp)
-constexpr int WIN_TY = 2;    // nodes per tile along y
-constexpr int WIN_NB = 4;    // z-planes per tile
-constexpr int WIN_THREADS = WIN_TX * WIN_TY * WIN_NB;
+
+// stencil_window: cells a tile computes along x, y and z (one thread
+// each); its nodes are the tile less its first column, row and layer.
+constexpr int WX = 16, WY = 4, WZ = 4;
+constexpr int WT = WX * WY * WZ;
+constexpr int WIN_MIN_BLOCKS = WT >= 512 ? 1 : 512 / WT;
+constexpr int WRX = 3 * (WX + 1);  // values in a staged row of nodes
+constexpr int WRY = WY + 1;        // staged rows of a plane
+constexpr int WRZ = WZ + 1;        // staged node planes
 
 // hex corner offsets (iz, iy, ix) in VTK order, as in grid.py
 __device__ constexpr int OZ[8] = {0, 0, 0, 0, 1, 1, 1, 1};
 __device__ constexpr int OY[8] = {0, 0, 1, 1, 0, 0, 1, 1};
 __device__ constexpr int OX[8] = {0, 1, 1, 0, 0, 1, 1, 0};
-
-// One node's three outputs.  d[dz][dy][dx][b] = u[n + (dz-1, dy-1, dx-1), b]
-// - u[n, b] (any value where that neighbour lies outside the lattice: only
-// cells outside the box would read it).  Cell j is the one of which n is
-// corner j; valid bit j says it lies inside the box, e[j] is its scale.
-template <typename T>
-__device__ __forceinline__ void node_apply(const T (&d)[3][3][3][3],
-                                           const T (&e)[8], unsigned valid,
-                                           const T* __restrict__ ke_s,
-                                           T (&acc)[3]) {
-    acc[0] = acc[1] = acc[2] = T(0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        if (!(valid & (1u << j))) continue;
-        T inner[3] = {T(0), T(0), T(0)};
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-            if (k == j) continue;          // its difference is zero
-            const T(&dk)[3] = d[OZ[k] - OZ[j] + 1][OY[k] - OY[j] + 1]
-                               [OX[k] - OX[j] + 1];
-#pragma unroll
-            for (int a = 0; a < 3; ++a)
-#pragma unroll
-                for (int b = 0; b < 3; ++b)
-                    inner[a] += ke_s[(3 * j + a) * 24 + 3 * k + b] * dk[b];
-        }
-#pragma unroll
-        for (int a = 0; a < 3; ++a) acc[a] += e[j] * inner[a];
-    }
-}
-
-// Which of the 8 cells around node (z, y, x) lie inside the box, and their
-// flat indices into esc [nz, ny, nx].
-__device__ __forceinline__ unsigned cells_of_node(int z, int y, int x, int nx,
-                                                  int ny, int nz,
-                                                  int64_t (&cell)[8]) {
-    unsigned valid = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        const int cz = z - OZ[j], cy = y - OY[j], cx = x - OX[j];
-        const bool in = cz >= 0 && cz < nz && cy >= 0 && cy < ny && cx >= 0 &&
-                        cx < nx;
-        cell[j] = ((int64_t)cz * ny + cy) * nx + cx;
-        if (in) valid |= 1u << j;
-    }
-    return valid;
-}
 
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem,
                                          const int bytes) {
@@ -159,6 +125,43 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage n_planes node planes from p0 on into shared memory, each as SR
+// rows (y0 - 1 onwards) of SX values (nodes x0 - 1 onwards), a row a warp
+// of the NTHREADS; zero outside the lattice.  The copies are cp.async,
+// committed as one group.
+template <typename T, int SX, int SR, int NTHREADS>
+__device__ __forceinline__ void stage_planes(T* __restrict__ planes,
+                                             const T* __restrict__ u, int p0,
+                                             int n_planes, int y0, int x0,
+                                             int NX, int NY, int NZ,
+                                             int tid) {
+    constexpr int STEPS = (SX + 31) / 32;
+    const int lane = tid & 31, warp = tid >> 5;
+    unsigned col_in = 0;     // bit k: value lane + 32k lies in the row
+#pragma unroll
+    for (int k = 0; k < STEPS; ++k) {
+        const int c = lane + 32 * k, xx = x0 - 1 + c / 3;
+        if (c < SX && xx >= 0 && xx < NX) col_in |= 1u << k;
+    }
+    const int n_rows = n_planes * SR;
+    for (int row = warp; row < n_rows; row += NTHREADS / 32) {
+        const int q = row / SR, r = row - q * SR;
+        const int p = p0 + q, yy = y0 - 1 + r;
+        const bool in = p >= 0 && p < NZ && yy >= 0 && yy < NY;
+        T* dst = planes + row * SX;
+        const T* src = u + (((int64_t)p * NY + yy) * NX + x0 - 1) * 3;
+#pragma unroll
+        for (int k = 0; k < STEPS; ++k) {
+            const int c = lane + 32 * k;
+            if (in && (col_in >> k & 1u))
+                cp_async(dst + c, src + c, (int)sizeof(T));
+            else if (c < SX)
+                dst[c] = T(0);
+        }
+    }
+    cp_async_commit();
 }
 
 // One tet of the split: the path 0 -> P1 -> P2 -> 6 along axes A, B, C
@@ -198,14 +201,14 @@ __device__ __forceinline__ void tet_columns(const T (&e1)[3],
 }
 
 // The forces of one cell on its 8 corners through its six tets.  p0 / p1
-// point at the cell's corner (0, 0, 0) / (1, 0, 0) in the staged planes;
-// lt, mt the cell's scale times vol*lam, vol*mu; ih = 1/dx, 1/dy, 1/dz.
-// Corner j's forces go to fb[(3j + a) * PT] (j < 4) or
-// ft[(3(j - 4) + a) * PT].  The twelve edges are formed once (each over
+// point at the cell's corner (0, 0, 0) / (1, 0, 0) in the staged planes,
+// whose rows hold SX values; lt, mt the cell's scale times vol*lam,
+// vol*mu; ih = 1/dx, 1/dy, 1/dz.  Corner j's forces go to fb[(3j + a) * FS]
+// (j < 4) or ft[(3(j - 4) + a) * FS].  The twelve edges are formed once (each over
 // its length); the tets run in the order of grid._TET_SPLIT; corner 0
 // sums -s_0 and corner 6 s_2 over the tets in order, a corner shared by
 // two tets takes the first tet's force, then adds the second's.
-template <typename T>
+template <typename T, int SX, int FS>
 __device__ __forceinline__ void cell_forces(const T* __restrict__ p0,
                                             const T* __restrict__ p1, T lt,
                                             T mt, const T (&ih)[3],
@@ -216,7 +219,7 @@ __device__ __forceinline__ void cell_forces(const T* __restrict__ p0,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int a = 0; a < 3; ++a)
-            c[j][a] = (OZ[j] ? p1 : p0)[OY[j] * RX + 3 * OX[j] + a];
+            c[j][a] = (OZ[j] ? p1 : p0)[OY[j] * SX + 3 * OX[j] + a];
     // edges: X01 is corner 1 - corner 0 (along x) over dx, and so on
     T X01[3], Y03[3], Z04[3], Y12[3], X32[3], Z37[3], Y47[3], X45[3],
         Z15[3], Z26[3], X76[3], Y56[3];
@@ -238,8 +241,8 @@ __device__ __forceinline__ void cell_forces(const T* __restrict__ p0,
     auto put = [&](int j, const T (&v)[3]) {
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
-            if (j < 4) fb[(3 * j + a) * PT] = v[a];
-            else ft[(3 * (j - 4) + a) * PT] = v[a];
+            if (j < 4) fb[(3 * j + a) * FS] = v[a];
+            else ft[(3 * (j - 4) + a) * FS] = v[a];
         }
     };
     T F0[3], F6[3], F1[3], F2[3], F3[3], F7[3], F4[3], F5[3], v[3];
@@ -337,34 +340,9 @@ stencil_plane_kernel(const T* __restrict__ u, const T* __restrict__ esc,
     const T ih[3] = {table[0], table[1], table[2]};
     const T vlam = table[3], vmu = table[4];
 
-    // node planes z0 - 1 .. z1, nodes x0-1 .. x0+CX-1 by y0-1 .. y0+CY-1,
-    // a row of RX values a warp; zero outside the lattice
-    {
-        const int lane = tid & 31, warp = tid >> 5;
-        unsigned col_in = 0;     // bit k: value lane + 32k lies in the row
-#pragma unroll
-        for (int k = 0; k < ROW_STEPS; ++k) {
-            const int c = lane + 32 * k, xx = x0 - 1 + c / 3;
-            if (c < RX && xx >= 0 && xx < NX) col_in |= 1u << k;
-        }
-        const int n_rows = (z1 - z0 + 2) * RY;
-        for (int row = warp; row < n_rows; row += PT / 32) {
-            const int q = row / RY, r = row - q * RY;
-            const int p = z0 - 1 + q, yy = y0 - 1 + r;
-            const bool in = p >= 0 && p < NZ && yy >= 0 && yy < NY;
-            T* dst = planes + row * RX;
-            const T* src = u + (((int64_t)p * NY + yy) * NX + x0 - 1) * 3;
-#pragma unroll
-            for (int k = 0; k < ROW_STEPS; ++k) {
-                const int c = lane + 32 * k;
-                if (in && (col_in >> k & 1u))
-                    cp_async(dst + c, src + c, (int)sizeof(T));
-                else if (c < RX)
-                    dst[c] = T(0);
-            }
-        }
-    }
-    cp_async_commit();
+    // node planes z0 - 1 .. z1, nodes x0-1 .. x0+CX-1 by y0-1 .. y0+CY-1
+    stage_planes<T, RX, RY, PT>(planes, u, z0 - 1, z1 - z0 + 2, y0, x0, NX,
+                                NY, NZ, tid);
 
     const int cx = x0 - 1 + lx, cy = y0 - 1 + ly;
     const bool in_xy = cx >= 0 && cx < nx && cy >= 0 && cy < ny;
@@ -388,8 +366,8 @@ stencil_plane_kernel(const T* __restrict__ u, const T* __restrict__ esc,
         e_next = scale_of(cz + 1);
         if (in_xy && cz >= 0 && cz < nz) {
             const T* p0 = planes + (cz - z0 + 1) * (RY * RX) + ly * RX + 3 * lx;
-            cell_forces<T>(p0, p0 + RY * RX, e * vlam, e * vmu, ih,
-                           fbot + cell, ftop + cell);
+            cell_forces<T, RX, PT>(p0, p0 + RY * RX, e * vlam, e * vmu, ih,
+                                   fbot + cell, ftop + cell);
         } else {
 #pragma unroll
             for (int i = 0; i < 12; ++i) {
@@ -422,76 +400,72 @@ stencil_plane_kernel(const T* __restrict__ u, const T* __restrict__ esc,
     }
 }
 
+// One block: a WX x WY x WZ tile of cells, one thread a cell, for the
+// nodes after its first column, row and layer.  The node planes it reads
+// and its own cell's scale arrive first; every cell's bottom (corners
+// 0-3) and top (4-7) face forces go to shared memory at once; after one
+// barrier a node of plane z sums corners 0-3 of layer z in order plus the
+// sum of corners 4-7 of layer z - 1 in order, as stencil_plane does.
 template <typename T>
-__global__ void __launch_bounds__(WIN_THREADS)
+__global__ void __launch_bounds__(WT, WIN_MIN_BLOCKS)
 stencil_window_kernel(const T* __restrict__ u, const T* __restrict__ esc,
-                      const T* __restrict__ ke, T* __restrict__ y, int nx,
+                      const T* __restrict__ table, T* __restrict__ y, int nx,
                       int ny, int nz) {
-    constexpr int SX = 3 * (WIN_TX + 2);          // values per staged row
-    constexpr int SY = WIN_TY + 2, SZ = WIN_NB + 2;
-    constexpr int EX = WIN_TX + 1, EY = WIN_TY + 1, EZ = WIN_NB + 1;
-    __shared__ T ke_s[576];
-    __shared__ T u_s[SZ][SY][SX];
-    __shared__ T e_s[EZ][EY][EX];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* planes = reinterpret_cast<T*>(smem_raw);  // [WRZ][WRY][WRX]
+    T* fbot = planes + WRZ * WRY * WRX;          // [12][WT]
+    T* ftop = fbot + 12 * WT;                    // [12][WT]
 
     const int NX = nx + 1, NY = ny + 1, NZ = nz + 1;
-    const int x0 = blockIdx.x * WIN_TX, y0 = blockIdx.y * WIN_TY,
-              z0 = blockIdx.z * WIN_NB;
-    const int tid = (threadIdx.z * WIN_TY + threadIdx.y) * WIN_TX + threadIdx.x;
+    const int tid = threadIdx.x;
+    const int lx = tid % WX, ly = (tid / WX) % WY, lz = tid / (WX * WY);
+    // the tile's first cell is (z0 - 1, y0 - 1, x0 - 1); its nodes start
+    // at z0, y0, x0
+    const int x0 = blockIdx.x * (WX - 1), y0 = blockIdx.y * (WY - 1),
+              z0 = blockIdx.z * (WZ - 1);
+    const T ih[3] = {table[0], table[1], table[2]};
+    const T vlam = table[3], vmu = table[4];
+    stage_planes<T, WRX, WRY, WT>(planes, u, z0 - 1, WRZ, y0, x0, NX, NY, NZ,
+                                  tid);
 
-    for (int i = tid; i < 576; i += WIN_THREADS) ke_s[i] = ke[i];
-    // the tile of u with its one-node halo; zero outside the lattice
-    for (int i = tid; i < SZ * SY * SX; i += WIN_THREADS) {
-        const int c = i % SX, r = i / SX;
-        const int sy = r % SY, sz = r / SY;
-        const int zz = z0 - 1 + sz, yy = y0 - 1 + sy, xx = x0 - 1 + c / 3;
-        const bool in = zz >= 0 && zz < NZ && yy >= 0 && yy < NY && xx >= 0 &&
-                        xx < NX;
-        u_s[sz][sy][c] =
-            in ? u[3 * (((int64_t)zz * NY + yy) * NX + xx) + c % 3] : T(0);
-    }
-    // the cells touching the tile: cell (z0-1+ez, y0-1+ey, x0-1+ex)
-    if (esc != nullptr) {
-        for (int i = tid; i < EZ * EY * EX; i += WIN_THREADS) {
-            const int ex = i % EX, r = i / EX;
-            const int ey = r % EY, ez = r / EY;
-            const int cz = z0 - 1 + ez, cy = y0 - 1 + ey, cx = x0 - 1 + ex;
-            const bool in = cz >= 0 && cz < nz && cy >= 0 && cy < ny &&
-                            cx >= 0 && cx < nx;
-            e_s[ez][ey][ex] = in ? esc[((int64_t)cz * ny + cy) * nx + cx] : T(1);
+    const int cx = x0 - 1 + lx, cy = y0 - 1 + ly, cz = z0 - 1 + lz;
+    const bool in_box = cx >= 0 && cx < nx && cy >= 0 && cy < ny && cz >= 0 &&
+                        cz < nz;
+    const T e = (esc != nullptr && in_box)
+                    ? esc[((int64_t)cz * ny + cy) * nx + cx] : T(1);
+    cp_async_wait_all();
+    __syncthreads();
+    if (in_box) {
+        const T* p0 = planes + (lz * WRY + ly) * WRX + 3 * lx;
+        cell_forces<T, WRX, WT>(p0, p0 + WRY * WRX, e * vlam, e * vmu, ih,
+                                fbot + tid, ftop + tid);
+    } else {
+#pragma unroll
+        for (int i = 0; i < 12; ++i) {
+            fbot[i * WT + tid] = T(0);
+            ftop[i * WT + tid] = T(0);
         }
     }
     __syncthreads();
-
-    const int x = x0 + threadIdx.x, y_ = y0 + threadIdx.y, z = z0 + threadIdx.z;
-    if (x >= NX || y_ >= NY || z >= NZ) return;
-    // this node in the staged tile
-    const int lx = threadIdx.x + 1, ly = threadIdx.y + 1, lz = threadIdx.z + 1;
-    T uc[3];
+    // the node of this thread is (cz, cy, cx): corner 0 of its own cell,
+    // corner j of the cell tid - cj[j]
+    if (lx >= 1 && ly >= 1 && lz >= 1 && cx < NX && cy < NY && cz < NZ) {
+        int cj[8];
 #pragma unroll
-    for (int b = 0; b < 3; ++b) uc[b] = u_s[lz][ly][3 * lx + b];
-    T d[3][3][3][3];
+        for (int j = 0; j < 8; ++j)
+            cj[j] = tid - (OZ[j] * WY + OY[j]) * WX - OX[j];
+        const int64_t n = ((int64_t)cz * NY + cy) * NX + cx;
 #pragma unroll
-    for (int dz = 0; dz < 3; ++dz)
+        for (int a = 0; a < 3; ++a) {
+            T top = ftop[a * WT + cj[4]];
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
+            for (int j = 5; j < 8; ++j) top += ftop[(3 * (j - 4) + a) * WT + cj[j]];
+            T acc = fbot[a * WT + cj[0]];
 #pragma unroll
-            for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-                for (int b = 0; b < 3; ++b)
-                    d[dz][dy][dx][b] =
-                        u_s[lz + dz - 1][ly + dy - 1][3 * (lx + dx - 1) + b] - uc[b];
-    int64_t cell[8];
-    const unsigned valid = cells_of_node(z, y_, x, nx, ny, nz, cell);
-    T e[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-        e[j] = esc != nullptr ? e_s[lz - OZ[j]][ly - OY[j]][lx - OX[j]] : T(1);
-    T acc[3];
-    node_apply<T>(d, e, valid, ke_s, acc);
-    const int64_t n = ((int64_t)z * NY + y_) * NX + x;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) y[3 * n + a] = acc[a];
+            for (int j = 1; j < 4; ++j) acc += fbot[(3 * j + a) * WT + cj[j]];
+            y[3 * n + a] = acc + top;
+        }
+    }
 }
 
 // Shared memory of a stencil_plane block: zn + 2 staged planes and the
@@ -561,21 +535,37 @@ int launch_plane(const void* u, const void* esc, const void* table, void* y,
     return (int)cudaGetLastError();
 }
 
+// Shared memory of a stencil_window block: its staged node planes and the
+// two face-force buffers (float64: above the 48 KB a block gets without
+// asking).
 template <typename T>
-int launch_window(const void* u, const void* esc, const void* ke, void* y,
+constexpr size_t window_smem() {
+    return sizeof(T) * ((size_t)WRZ * WRY * WRX + 24 * WT);
+}
+
+template <typename T>
+int launch_window(const void* u, const void* esc, const void* table, void* y,
                   int nx, int ny, int nz, void* stream) {
-    const dim3 grid((nx + 1 + WIN_TX - 1) / WIN_TX, (ny + 1 + WIN_TY - 1) / WIN_TY,
-                    (nz + 1 + WIN_NB - 1) / WIN_NB);
-    const dim3 block(WIN_TX, WIN_TY, WIN_NB);
-    stencil_window_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const T*)u, (const T*)esc, (const T*)ke, (T*)y, nx, ny, nz);
+    static bool ready = false;
+    if (!ready) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            stencil_window_kernel<T>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)window_smem<T>());
+        if (err != cudaSuccess) return (int)err;
+        ready = true;
+    }
+    const dim3 grid((nx + 1 + WX - 2) / (WX - 1), (ny + 1 + WY - 2) / (WY - 1),
+                    (nz + 1 + WZ - 2) / (WZ - 1));
+    stencil_window_kernel<T><<<grid, WT, window_smem<T>(),
+                               (cudaStream_t)stream>>>(
+        (const T*)u, (const T*)esc, (const T*)table, (T*)y, nx, ny, nz);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface, bound with ctypes in ops/stencil.py.  u, table (plane),
-// ke (window) and y are device pointers, esc a device pointer or null; nx,
+// Plain C interface, bound with ctypes in ops/stencil.py.  u, table and y
+// are device pointers, esc a device pointer or null; nx,
 // ny, nz count cells; zn is the plane kernel's z chunk in node planes (0:
 // stencil_plane_chunk's choice for the type; larger values are cut to
 // what two blocks an SM can stage).  Each entry point returns
@@ -597,14 +587,14 @@ int stencil_plane_chunk(int nx, int ny, int nz, int is_double) {
                      : plane_chunk(nx, ny, nz, plane_chunk_max<float>());
 }
 
-int stencil_window_f32(const void* u, const void* esc, const void* ke, void* y,
-                       int nx, int ny, int nz, void* stream) {
-    return launch_window<float>(u, esc, ke, y, nx, ny, nz, stream);
+int stencil_window_f32(const void* u, const void* esc, const void* table,
+                       void* y, int nx, int ny, int nz, void* stream) {
+    return launch_window<float>(u, esc, table, y, nx, ny, nz, stream);
 }
 
-int stencil_window_f64(const void* u, const void* esc, const void* ke, void* y,
-                       int nx, int ny, int nz, void* stream) {
-    return launch_window<double>(u, esc, ke, y, nx, ny, nz, stream);
+int stencil_window_f64(const void* u, const void* esc, const void* table,
+                       void* y, int nx, int ny, int nz, void* stream) {
+    return launch_window<double>(u, esc, table, y, nx, ny, nz, stream);
 }
 
 const char* stencil_apply_error_string(int err) {

@@ -61,8 +61,8 @@ class StructuredStiffnessOperator:
         self.free_mask = free_mask    # [ndof] 1.0 free / 0.0 fixed
         self.escale = escale          # [nz, ny, nx] or None
         self.dims = dims              # (nx, ny, nz) cells
-        #: the hex stiffness (the window kernel and the plain version) and
-        #: the six tets' cell table (the plane kernel), in the working dtype
+        #: the hex stiffness (the plain version) and the six tets' cell
+        #: table (both stencil kernels), in the working dtype
         self.ke = torch.as_tensor(self._hex_ke(), dtype=free_mask.dtype,
                                   device=free_mask.device)
         self.table = cell_table(g, vol, lam, mu, free_mask.dtype,

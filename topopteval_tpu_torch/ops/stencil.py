@@ -25,14 +25,15 @@ three edges over their lengths, and g reduces to 1/dx, 1/dy, 1/dz:
 the working dtype.
 
 On a CUDA tensor the call launches one of the two hand-written kernels of
-``csrc/stencil_apply.cu`` or raises; it never falls back:
+``csrc/stencil_apply.cu`` or raises; it never falls back.  Both take the
+six-tet cell form from ``table`` (required on the card) and sum every
+node in one fixed order, so they give the same bits:
 
-- ``plane``  (default) the six-tet cell form from ``table``: a block
-  marches an x-y tile of cells along z (the counterpart of the per-plane
-  ``_stencil_kernel``); ``table`` is required;
-- ``window`` the Ke form: a block stages a z-blocked tile of ``u`` and its
-  halo in shared memory first (the counterpart of ``_window_kernel``);
-  opt-in through ``kernel="window"`` or ``TOPOPT_STENCIL_KERNEL=window``.
+- ``plane``  (default) a block marches an x-y tile of cells along z (the
+  counterpart of the per-plane ``_stencil_kernel``);
+- ``window`` a block computes a 3-D tile of cells at once, with no march
+  (the counterpart of the z-blocked ``_window_kernel``); opt-in through
+  ``kernel="window"`` or ``TOPOPT_STENCIL_KERNEL=window``.
 
 On a CPU tensor it runs ``stencil_matvec_reference``, the plain PyTorch
 version, which is also what the kernels are held against on the card.
@@ -59,7 +60,7 @@ KERNELS = ("plane", "window")
 #: hex corner offsets in (iz, iy, ix), VTK order (matches grid.py)
 CORNER_OFFSETS = ((0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0),
                   (1, 0, 0), (1, 0, 1), (1, 1, 1), (1, 1, 0))
-#: the plane kernel's cell table: 1/dx, 1/dy, 1/dz, vol*lam, vol*mu
+#: the kernels' cell table: 1/dx, 1/dy, 1/dz, vol*lam, vol*mu
 #: (csrc/stencil_apply.cu NT)
 CELL_TABLE = 5
 #: grid._TET_SPLIT's tets as paths 0 -> P1 -> P2 -> 6 along axes (x 0,
@@ -81,7 +82,7 @@ def path_gradients(inv_h) -> np.ndarray:
 
 def cell_table(g, vol, lam: float, mu: float, dtype=torch.float64,
                device="cpu") -> torch.Tensor:
-    """The plane kernel's per-level table [CELL_TABLE] from the six tets'
+    """The kernels' per-level table [CELL_TABLE] from the six tets'
     gradients g [6, 4, 3] (vertex order of grid._TET_SPLIT) and volumes
     vol [6]: 1/dx, 1/dy, 1/dz, vol*lam, vol*mu, in float64 on the host,
     then cast.  Raises unless g is the six path tets of one box of equal
@@ -122,7 +123,8 @@ def kernel_choice(kernel: Optional[str] = None) -> str:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The built ``csrc/stencil_apply.cu`` with its C signatures declared."""
+    """The built ``csrc/stencil_apply.cu`` with its C signatures declared:
+    (u, esc, table, y, nx, ny, nz[, zn], stream)."""
     lib = _build.load("stencil_apply")
     for name in LAUNCHES:
         for suffix in ("f32", "f64"):
@@ -173,9 +175,8 @@ def _check(u, esc, ke, dims, table=None) -> None:
             raise ValueError(f"stencil_matvec: {label} must be contiguous")
 
 
-def _launch(name: str, u, esc, coef, dims) -> torch.Tensor:
-    """One launch of ``name`` with ``coef`` its coefficients: the cell
-    table (plane) or Ke (window)."""
+def _launch(name: str, u, esc, table, dims) -> torch.Tensor:
+    """One launch of ``name`` with the level's cell table."""
     y = torch.empty_like(u)
     lib = _library()
     fn = getattr(lib, f"{name}_{'f32' if u.dtype == torch.float32 else 'f64'}")
@@ -183,7 +184,7 @@ def _launch(name: str, u, esc, coef, dims) -> torch.Tensor:
     nx, ny, nz = dims
     chunk = (0,) if name == "stencil_plane" else ()
     err = fn(u.data_ptr(), None if esc is None else esc.data_ptr(),
-             coef.data_ptr(), y.data_ptr(), nx, ny, nz, *chunk, stream)
+             table.data_ptr(), y.data_ptr(), nx, ny, nz, *chunk, stream)
     if err != 0:
         msg = lib.stencil_apply_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
@@ -199,22 +200,20 @@ def stencil_matvec(u: torch.Tensor, esc: Optional[torch.Tensor],
     """y = K_raw u on the (nx, ny, nz)-cell box (see the module docstring).
 
     ``u`` [3*NX*NY*NZ], ``esc`` [nz, ny, nx] or None, ``ke`` [24, 24] and
-    ``table`` [CELL_TABLE] (:func:`cell_table` of the same tets; the plane
-    kernel needs it on the card), all of one dtype (float32 or float64) on
+    ``table`` [CELL_TABLE] (:func:`cell_table` of the same tets; both
+    kernels need it on the card), all of one dtype (float32 or float64) on
     one device and contiguous."""
     dims = tuple(int(d) for d in dims)
     choice = kernel_choice(kernel)
     _check(u, esc, ke, dims, table)
     if u.device.type == "cpu":
         return stencil_matvec_reference(u, esc, ke, dims)
+    if table is None:
+        raise ValueError(f"stencil_matvec: the {choice} kernel needs the "
+                         "cell table (table=cell_table(...))")
     if u.device.type != "cuda":
         raise ValueError(f"stencil_matvec: no kernel for device {u.device}")
-    if choice == "plane":
-        if table is None:
-            raise ValueError("stencil_matvec: the plane kernel needs the "
-                             "cell table (table=cell_table(...))")
-        return _launch("stencil_plane", u, esc, table, dims)
-    return _launch("stencil_window", u, esc, ke, dims)
+    return _launch(f"stencil_{choice}", u, esc, table, dims)
 
 
 # ---------------------------------------------------------------------------
