@@ -107,7 +107,30 @@ few) and each failing the script on a failed check:
    1e-8; a tet10 traction (tri6 facets) on the scale-4 tet10 beam by fp64
    and fp32-refined block-Jacobi CG on B7; the backward-error fallback
    forced on the block-ELL route; and the four examples
-   (topopteval_tpu_torch/examples) with their JAX twins' checks.
+   (topopteval_tpu_torch/examples) with their JAX twins' checks;
+14. the robust solver ladder and the other readers, in float64 at
+   tolerance 1e-10 with block-Jacobi: MINRES on the scale-8 beam as the
+   ladder's first rung alone (iterations, wall and device ms per
+   iteration, the backward error against the ladder's gate), BiCGSTAB on
+   it through ``solve_system`` (the energy within 1e-8 of
+   data/oracle_energies.json), the device ms of a GMRES(30) and a GMRES(200)
+   iteration there, and the ladder's GMRES through ``solve_system`` on the
+   12x4x1 beam (it must end in GMRES; its energy held to the host direct
+   solve by the residual it leaves); MINRES in float32 under the float64
+   refinement (``minres+refine``); the forced fallbacks (a GMRES budget
+   too small, a wrong ``u`` that the backward-error gate must reject);
+   ``solve_system_robust`` verbose, its headings and the operator's
+   device residency against the allocator's figure;
+   ``solve_system_adaptive`` on the generated 1,228,800-tet beam
+   (stencil multigrid, float64) and ``profile_to`` around three of its
+   MG-PCG iterations (the trace must name the stencil kernel); the same
+   beam written as .msh (v4.1 binary, v2.2 ASCII) with named surface
+   groups and imported (arrays and node sets equal to the .vtu mesh's),
+   then clamped and loaded by ``select_nodes_by_set`` and solved by
+   ``solve_system_adaptive`` (block-ELL multigrid, float32, phase 8's
+   hierarchy from its cache file), equal to phase 8's .vtu problem under
+   the same call to 1e-12; the scale-4 tet10 beam as .msh in gmsh's node
+   order; the scale-8 beam through .inp, solved, and converted to .vtu.
 
 The line before last is one JSON object with a record per kernel; the
 last line is the run's contract line.  Imports nothing of JAX.
@@ -247,6 +270,116 @@ def ell_scalar_triplets(table):
     live = w != 0
     rows = np.repeat(np.arange(table.n_rows), table.S).reshape(cols.shape)
     return rows[live], cols[live], w[live]
+
+
+# gmsh element type ids of the writers below, and gmsh's node order of
+# the tet10 (its last two mid-edge nodes swapped against VTK's)
+GMSH_TYPE = {"tri3": 2, "tet4": 4, "tet10": 11}
+GMSH_ORDER = {"tet10": [0, 1, 2, 3, 4, 5, 6, 7, 9, 8]}
+
+
+def plane_triangles(coords, axis, value):
+    """Triangles (tri3 node lists) covering every node of ``coords`` on
+    the plane ``x[axis] = value``, where those nodes form a full lattice
+    (any face of a generated box, of its tet10 refinement too)."""
+    import numpy as np
+    nodes = np.flatnonzero(np.abs(coords[:, axis] - value) <= 1e-9)
+    a, b = [k for k in range(3) if k != axis]
+    ua, ia = np.unique(coords[nodes, a], return_inverse=True)
+    ub, ib = np.unique(coords[nodes, b], return_inverse=True)
+    grid = np.full((len(ua), len(ub)), -1, np.int64)
+    grid[ia, ib] = nodes
+    if (grid < 0).any():
+        raise ValueError("the plane's nodes do not form a full lattice")
+    q = np.stack([grid[:-1, :-1], grid[1:, :-1], grid[1:, 1:],
+                  grid[:-1, 1:]], axis=-1).reshape(-1, 4)
+    return np.concatenate([q[:, [0, 1, 2]], q[:, [0, 2, 3]]])
+
+
+def write_msh22_ascii(path, coords, groups):
+    """A gmsh 2.2 ASCII file: ``groups`` is a list of (dim, physical tag,
+    name, element type, conn [n, k] 0-based in VTK order)."""
+    import numpy as np
+    with open(path, "w") as fh:
+        fh.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$PhysicalNames\n"
+                 f"{len(groups)}\n")
+        for dim, tag, name, _, _ in groups:
+            fh.write(f'{dim} {tag} "{name}"\n')
+        fh.write(f"$EndPhysicalNames\n$Nodes\n{len(coords)}\n")
+        np.savetxt(fh, np.column_stack([np.arange(1, len(coords) + 1),
+                                        coords]),
+                   fmt=["%d", "%.17g", "%.17g", "%.17g"])
+        n_el = sum(len(g[4]) for g in groups)
+        fh.write(f"$EndNodes\n$Elements\n{n_el}\n")
+        eid = 1
+        for dim, tag, _, etype, conn in groups:
+            conn = np.asarray(conn)[:, GMSH_ORDER.get(etype, slice(None))]
+            n = len(conn)
+            rows = np.column_stack([
+                np.arange(eid, eid + n), np.full(n, GMSH_TYPE[etype]),
+                np.full(n, 2), np.full(n, tag), np.full(n, tag), conn + 1])
+            np.savetxt(fh, rows, fmt="%d")
+            eid += n
+        fh.write("$EndElements\n")
+
+
+def write_msh41_binary(path, coords, groups):
+    """A gmsh 4.1 binary file (little-endian, 8-byte size_t) of the same
+    ``groups``; each group is one entity carrying its physical tag."""
+    import numpy as np
+    u8 = "<u8"
+    by_dim = {d: [g for g in groups if g[0] == d] for d in (0, 1, 2, 3)}
+    lo, hi = coords.min(axis=0), coords.max(axis=0)
+    with open(path, "wb") as fh:
+        fh.write(b"$MeshFormat\n4.1 1 8\n")
+        fh.write(np.array([1], "<i4").tobytes())
+        fh.write(b"\n$EndMeshFormat\n$PhysicalNames\n")
+        fh.write(f"{len(groups)}\n".encode())
+        for dim, tag, name, _, _ in groups:
+            fh.write(f'{dim} {tag} "{name}"\n'.encode())
+        fh.write(b"$EndPhysicalNames\n$Entities\n")
+        fh.write(np.array([len(by_dim[d]) for d in range(4)], u8).tobytes())
+        for d in (1, 2, 3):
+            for _, tag, _, _, _ in by_dim[d]:
+                fh.write(np.array([tag], "<i4").tobytes())
+                fh.write(np.concatenate([lo, hi]).astype("<f8").tobytes())
+                fh.write(np.array([1], u8).tobytes())
+                fh.write(np.array([tag], "<i4").tobytes())
+                fh.write(np.array([0], u8).tobytes())
+        n = len(coords)
+        fh.write(b"\n$EndEntities\n$Nodes\n")
+        fh.write(np.array([1, n, 1, n], u8).tobytes())
+        fh.write(np.array([3, by_dim[3][0][1], 0], "<i4").tobytes())
+        fh.write(np.array([n], u8).tobytes())
+        fh.write(np.arange(1, n + 1, dtype=u8).tobytes())
+        fh.write(np.ascontiguousarray(coords, "<f8").tobytes())
+        n_el = sum(len(g[4]) for g in groups)
+        fh.write(b"\n$EndNodes\n$Elements\n")
+        fh.write(np.array([len(groups), n_el, 1, n_el], u8).tobytes())
+        eid = 1
+        for dim, tag, _, etype, conn in groups:
+            conn = np.asarray(conn)[:, GMSH_ORDER.get(etype, slice(None))]
+            k = len(conn)
+            fh.write(np.array([dim, tag, GMSH_TYPE[etype]], "<i4").tobytes())
+            fh.write(np.array([k], u8).tobytes())
+            fh.write(np.column_stack([np.arange(eid, eid + k), conn + 1])
+                     .astype(u8).tobytes())
+            eid += k
+        fh.write(b"\n$EndElements\n")
+
+
+def write_inp(path, coords, conn, abaqus_type="C3D4"):
+    """An Abaqus .inp file of one element section (1-based ids)."""
+    import numpy as np
+    with open(path, "w") as fh:
+        fh.write("*HEADING\n** written by chip_smoke.py\n*NODE\n")
+        np.savetxt(fh, np.column_stack([np.arange(1, len(coords) + 1),
+                                        coords]),
+                   fmt=["%d", "%.17g", "%.17g", "%.17g"], delimiter=", ")
+        fh.write(f"*ELEMENT, TYPE={abaqus_type}, ELSET=body\n")
+        np.savetxt(fh, np.column_stack([np.arange(1, len(conn) + 1),
+                                        np.asarray(conn) + 1]),
+                   fmt="%d", delimiter=", ")
 
 
 def galerkin_phase(env):
@@ -1117,6 +1250,426 @@ def load_phase(env):
               f"{name} example exported an empty file")
 
 
+def ladder_phase(env):
+    """Phase 14a-d: the robust solver ladder on the card.  ``env`` carries
+    main()'s helpers (check, solve, setup, profile) and inputs: ``beam``
+    (the generated scale-8 beam), ``beams`` (generated beams by scale),
+    ``oracles`` (data/oracle_energies.json) and ``dev``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    import topopteval_tpu_torch as tt
+    from topopteval_tpu_torch import api as tt_api
+    from topopteval_tpu_torch.fem import robust, solvers
+    from topopteval_tpu_torch.fem.operator import assemble_scipy
+
+    check, dev = env.check, env.dev
+    f64, f32 = torch.float64, torch.float32
+    LADDER_KW = dict(preconditioner="block_diagonal", tolerance=1e-10,
+                     max_iterations=20000, restart=30, verbose=False)
+
+    def rel(e, scale):
+        ref = env.oracles[f"tet_beam_scale_{scale}"]
+        return abs(e - ref) / abs(ref)
+
+    def rung(p):
+        """(operator, the ladder's preconditioner, masked load) of p."""
+        op = p.build_operator(with_bc=True)
+        M = tt_api._build_preconditioner(op, tt.SolverConfig(**LADDER_KW))
+        f = torch.as_tensor(p.f, dtype=p.dtype, device=dev) * op.free_mask
+        return op, M, f
+
+    def device_ms(p, method, iters, m=None):
+        """Device ms per iteration of ``iters`` iterations of the method
+        (tolerance 0, so none stops early) under torch.profiler."""
+        op, M, f = rung(p)
+        if method == "gmres":
+            fn = lambda: solvers._gmres_run(  # noqa: E731
+                op, f, torch.zeros_like(f), 0.0, M, iters, m, False)
+        else:
+            fn = lambda: getattr(solvers, method)(  # noqa: E731
+                op, f, M=M, tol=0.0, maxiter=iters)
+        fn()
+        ms, top, kpi = env.profile(fn, iters)
+        return ms, kpi
+
+    # -- 14a. MINRES, BiCGSTAB, GMRES in float64 ---------------------------
+    beam_p = env.setup(env.beam, f64)
+    check(beam_p.n_dofs == 89_991, "scale-8 beam is not 89,991 DOFs")
+    ladder = {}
+
+    # MINRES, the ladder's first rung alone: its recurrence meets the
+    # tolerance while its true residual stalls at its attainable accuracy
+    # (about eps·cond·|f|, above CG's); where the backward error is above
+    # the gate, the ladder (as the JAX package's) returns the host direct
+    # solve, a route tests/test_torch_verification_gate.py drives
+    op, M, f = rung(beam_p)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = solvers.minres(op, f, M=M, tol=1e-10, maxiter=20000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    eta, ffrac = tt_api._backward_error(op, f, res.x)
+    eta_max = 100.0 * float(torch.finfo(f64).eps) + 100.0 * 1e-10 * ffrac
+    true_r = float(torch.linalg.vector_norm(f - op.matvec(res.x)))
+    e_rel = rel(float(op.energy(res.x)), 8)
+    del op, M, f
+    ms_dev, kpi = device_ms(beam_p, "minres", 50)
+    ladder["minres"] = {"iterations": res.niter, "converged": res.converged,
+                        "wall_ms_per_iter": 1e3 * wall / res.niter,
+                        "device_ms_per_iter": ms_dev, "kernels_per_iter": kpi,
+                        "backward_error": eta, "gate": eta_max}
+    print(f"[ladder_minres_fp64] rung 1 alone: iterations={res.niter} "
+          f"converged={res.converged} reported_residual="
+          f"{res.residual_norm:.3e} true_residual={true_r:.3e} "
+          f"wall_s={wall:.3f} wall_ms_per_iter={1e3 * wall / res.niter:.4f} "
+          f"device_ms_per_iter={ms_dev:.4f} kernels_per_iter={kpi:.1f} "
+          f"backward_error={eta:.3e} gate={eta_max:.3e} "
+          f"energy_rel_err={e_rel:.3e}", flush=True)
+    check(res.converged, "minres's recurrence did not converge")
+    if eta <= eta_max:      # the ladder would return this iterate
+        check(e_rel <= 1e-8, f"minres fp64 energy rel_err {e_rel:.3e}")
+    else:
+        print(f"[ladder_minres_fp64] KNOWN: backward error {eta:.3e} > gate "
+              f"{eta_max:.3e}, so solve_system(method='minres') returns "
+              "direct(verification-fallback) here, as the JAX package's "
+              "does (ROADMAP Queue C 6)", flush=True)
+
+    # BiCGSTAB through solve_system
+    r, secs, launches = env.solve(
+        beam_p, tt.SolverConfig(method="bicgstab", **LADDER_KW),
+        "tet4_apply", method="bicgstab")
+    ms_dev, kpi = device_ms(beam_p, "bicgstab", 50)
+    e_rel = rel(r.energy, 8)
+    ladder["bicgstab"] = {"iterations": r.iterations,
+                          "wall_ms_per_iter": 1e3 * r.solve_time
+                          / r.iterations,
+                          "device_ms_per_iter": ms_dev,
+                          "kernels_per_iter": kpi, "method": r.method}
+    print(f"[ladder_bicgstab_fp64] solve_system: method={r.method} "
+          f"iterations={r.iterations} converged={r.converged} "
+          f"energy={r.energy!r} rel_err={e_rel:.3e} (tol 1e-08) "
+          f"solve_s={secs:.3f} wall_ms_per_iter="
+          f"{1e3 * r.solve_time / r.iterations:.4f} device_ms_per_iter="
+          f"{ms_dev:.4f} kernels_per_iter={kpi:.1f} "
+          f"tet4_apply_launches={launches}", flush=True)
+    check(r.converged and e_rel <= 1e-8,
+          f"bicgstab fp64 energy rel_err {e_rel:.3e}")
+
+    # GMRES: the cost of an iteration at scale 8 (GMRES(30) and the
+    # widened retry's m = 200); restarted GMRES(30) does not converge in
+    # 20,000 iterations there nor at scale 4 (topopteval_tpu_torch/tools/
+    # ladder_probe.py; ROADMAP Queue C 6)
+    ms30, kpi30 = device_ms(beam_p, "gmres", 60, m=30)
+    ms200, kpi200 = device_ms(beam_p, "gmres", 200, m=200)
+    print(f"[ladder_gmres_fp64] scale 8 device_ms_per_iter m=30 {ms30:.4f} "
+          f"({kpi30:.1f} kernels), m=200 {ms200:.4f} ({kpi200:.1f} kernels)",
+          flush=True)
+    del beam_p
+    # the ladder's GMRES(30) through solve_system on the 12x4x1 beam (the
+    # scale-8 beam's box, 390 DOFs): it must end in GMRES, not a fallback.
+    # Its energy is held to the host direct solve by the residual it
+    # leaves: with r = f - K u, E(u) - E* = -r.(u + u*)/2 exactly, and
+    # GMRES stops on the preconditioned residual, so its energy error is
+    # first order in r (about 1e-8 of E* at tolerance 1e-10 here and on
+    # the beams of scale 2, in both packages: ROADMAP Queue C 6)
+    p = env.setup(tt.generate_grid_tet(12, 4, 1, (0, 0, 0), BEAM_BOX), f64)
+    r, secs, launches = env.solve(
+        p, tt.SolverConfig(method="gmres", **LADDER_KW), "tet4_apply",
+        method="gmres")
+    mask = tt.free_mask_from_bcs(p.n_dofs, p.bcs)
+    K = assemble_scipy(p.mesh, p.lam, p.mu, order=p.quad_order,
+                       free_mask=mask)
+    f = p.f * mask
+    u_star = solvers.direct_solve(K, f)
+    e_star = 0.5 * float(u_star @ (K @ u_star))
+    u = np.asarray(r.u, dtype=np.float64) * mask
+    resid = f - K @ u
+    aK = abs(K)
+    rounding = 64 * np.finfo(np.float64).eps * (
+        abs(u) @ (aK @ abs(u)) + abs(u_star) @ (aK @ abs(u_star)))
+    bound = 0.5 * np.linalg.norm(resid) * (np.linalg.norm(u)
+                                           + np.linalg.norm(u_star)) \
+        + rounding
+    d_e = abs(r.energy - e_star)
+    ladder["gmres"] = {"dofs": p.n_dofs, "iterations": r.iterations,
+                       "method": r.method, "rel_err": d_e / e_star,
+                       "residual_bound": bound / e_star,
+                       "wall_ms_per_iter": 1e3 * r.solve_time / r.iterations,
+                       "device_ms_per_iter_m30": ms30,
+                       "device_ms_per_iter_m200": ms200}
+    print(f"[ladder_gmres_fp64] 12x4x1 beam dofs={p.n_dofs} solve_system: "
+          f"method={r.method} iterations={r.iterations} converged="
+          f"{r.converged} energy={r.energy!r} direct={e_star!r} "
+          f"rel_err={d_e / e_star:.3e} residual_bound={bound / e_star:.3e} "
+          f"true_residual={np.linalg.norm(resid) / np.linalg.norm(f):.3e} "
+          f"solve_s={secs:.3f} wall_ms_per_iter="
+          f"{1e3 * r.solve_time / r.iterations:.4f} "
+          f"tet4_apply_launches={launches}", flush=True)
+    check(r.converged and d_e <= bound,
+          f"gmres energy {d_e / e_star:.3e} off the direct solve, above "
+          f"the {bound / e_star:.3e} its residual allows")
+    del p, K
+
+    # -- 14b. MINRES in float32 under the float64 refinement --------------
+    p32 = env.setup(env.beam, f32)
+    r, secs, launches = env.solve(
+        p32, tt.SolverConfig(method="minres", **LADDER_KW), "tet4_apply",
+        method="minres+refine")
+    e_rel = rel(r.energy, 8)
+    print(f"[ladder_minres_fp32] method={r.method} iterations="
+          f"{r.iterations} passes={r.refinement_passes} converged="
+          f"{r.converged} energy={r.energy!r} rel_err={e_rel:.3e} "
+          f"(tol 1e-08) solve_s={secs:.3f} wall_ms_per_iter="
+          f"{1e3 * r.solve_time / r.iterations:.4f} refine_host_s="
+          f"{r.timings.get('refine_host_matvec_seconds', 0.0):.3f}",
+          flush=True)
+    check(r.converged and e_rel <= 1e-8,
+          f"fp32 minres rel_err {e_rel:.3e}")
+    ladder["minres_fp32"] = {"iterations": r.iterations,
+                             "passes": r.refinement_passes}
+    del p32
+
+    # -- 14c. the fallbacks, forced (scale-4 beam, float64) ---------------
+    p4 = env.setup(env.beams[4], f64)
+    r = tt.solve_system(p4, tt.SolverConfig(**{**LADDER_KW,
+                                               "method": "gmres",
+                                               "max_iterations": 5}))
+    e_rel = rel(r.energy, 4)
+    print(f"[ladder_fallback] gmres max_iterations=5: method={r.method} "
+          f"energy={r.energy!r} rel_err={e_rel:.3e}", flush=True)
+    check(r.method in ("cg(fallback)", "direct(fallback)") and e_rel <= 1e-8,
+          f"gmres with 5 iterations reported {r.method}")
+
+    def wrong_u(op, f_dev, m, config):
+        u = torch.ones(op.n_dofs, dtype=f_dev.dtype, device=f_dev.device)
+        return u * op.free_mask, 10, 1e-12, True, None, m
+
+    honest = robust.solve_with_krylov
+    robust.solve_with_krylov = wrong_u
+    try:
+        r = tt.solve_system(p4, tt.SolverConfig(method="gmres",
+                                                **LADDER_KW))
+    finally:
+        robust.solve_with_krylov = honest
+    e_rel = rel(r.energy, 4)
+    print(f"[ladder_fallback] solve_with_krylov returning a wrong u: "
+          f"method={r.method} energy={r.energy!r} rel_err={e_rel:.3e}",
+          flush=True)
+    check(r.method == "direct(verification-fallback)" and e_rel <= 1e-8,
+          f"the backward-error gate let a wrong u through: {r.method}")
+    del p4
+
+    # -- 14d. solve_system_robust, verbose, on the scale-8 beam -----------
+    p = env.setup(env.beam, f64)
+    out = io.StringIO()
+    tt.set_verbosity(True)
+    try:
+        with contextlib.redirect_stdout(out):
+            t = time.perf_counter()
+            r = tt.solve_system_robust(p, tt.SolverConfig(
+                method="auto", verbose=True, history=True))
+            secs = time.perf_counter() - t
+    finally:
+        tt.set_verbosity(False)
+    text = re.sub(r"\x1b\[[0-9;]*m", "", out.getvalue())
+    for heading in ("PRE-SOLVE DIAGNOSTICS", "Operator device residency",
+                    "FINAL ANALYSIS RESULTS"):
+        check(heading in text, f"solve_system_robust printed no {heading}")
+    m = re.search(r"Operator device residency .*\((\d+) bytes\); "
+                  r"allocated on the device: (\d+) bytes", text)
+    check(m is not None, "no residency figures in the diagnostics")
+    resident, allocated = int(m.group(1)), int(m.group(2))
+    e_rel = rel(r.energy, 8)
+    for line in text.splitlines():
+        if any(k in line for k in ("Operator device residency",
+                                   "Selected method", "Iterations completed",
+                                   "Status:", "Deformation energy")):
+            print(f"[ladder_robust] | {line.strip()}")
+    print(f"[ladder_robust] method={r.method} iterations={r.iterations} "
+          f"converged={r.converged} energy={r.energy!r} rel_err={e_rel:.3e} "
+          f"seconds={secs:.3f} history_len={len(r.history)} "
+          f"operator_bytes={resident} allocated_bytes={allocated} "
+          f"output_lines={len(text.splitlines())}", flush=True)
+    check(r.method == "cg" and r.converged,
+          f"solve_system_robust took {r.method}")
+    check(0 < resident <= allocated,
+          f"operator residency {resident} above the allocator's {allocated}")
+    ladder["robust"] = {"iterations": r.iterations,
+                        "operator_bytes": resident,
+                        "allocated_bytes": allocated}
+    return ladder
+
+
+def reader_phase(env):
+    """Phase 14e-g: ``solve_system_adaptive`` at full size, the GMSH and
+    Abaqus readers at full size, and ``profile_to``.  ``env`` carries
+    main()'s helpers (check, solve, setup) and inputs: ``beam16``,
+    ``beam`` (scale 8), ``beams`` (by scale), ``p16b_mesh`` (phase 8's
+    scale-16 mesh read back from .vtu), ``oracles``, ``dev``, ``tmp``."""
+    import numpy as np
+    import torch
+
+    import topopteval_tpu_torch as tt
+    from topopteval_tpu_torch.utils.profiling import profile_to
+
+    check, dev, tmp = env.check, env.dev, env.tmp
+    f64 = torch.float64
+    x_end = BEAM_BOX[0]
+
+    def rel(e, key):
+        return abs(e - env.oracles[key]) / abs(env.oracles[key])
+
+    # -- 14e. solve_system_adaptive on the generated scale-16 beam -------
+    p_st = env.setup(env.beam16, f64)
+    r, secs, launches = env.solve(p_st, None, "stencil_plane",
+                                  fn=tt.solve_system_adaptive)
+    e_rel = rel(r.energy, "tet_beam_scale_16")
+    print(f"[adaptive_stencil_fp64] dofs={p_st.n_dofs} method={r.method} "
+          f"iterations={r.iterations} converged={r.converged} "
+          f"energy={r.energy!r} rel_err={e_rel:.3e} (tol 1e-08) "
+          f"solve_s={secs:.3f} history_len={len(r.history)} "
+          f"stencil_plane_launches={launches}", flush=True)
+    check(r.converged and e_rel <= 1e-8,
+          f"adaptive scale-16 rel_err {e_rel:.3e}")
+
+    # -- 14g. profile_to around three MG-PCG iterations of 14e -----------
+    cfg3 = tt.SolverConfig(**{**dataclasses.asdict(
+        tt.adaptive_config(p_st.n_dofs)), "method": "cg",
+        "preconditioner": "multigrid", "max_iterations": 3,
+        "verbose": False, "history": False})
+    t = time.perf_counter()
+    with profile_to(os.path.join(tmp, "trace")) as prof:
+        r3 = tt.solve_system(p_st, cfg3)
+    with open(prof.path) as fh:
+        trace = fh.read()
+    names = sorted(set(re.findall(r'"name":\s*"([^"]*stencil[^"]*)"',
+                                  trace)))
+    print(f"[profile_to] {prof.path} bytes={len(trace)} iterations="
+          f"{r3.iterations} seconds={time.perf_counter() - t:.3f} "
+          f"stencil_events={names[:4]}", flush=True)
+    check(os.path.exists(prof.path) and r3.iterations == 3,
+          "profile_to wrote no trace of three iterations")
+    check(any("stencil_plane_kernel" in n for n in names),
+          "the trace does not name the stencil kernel")
+    del p_st, r3, trace
+
+    # -- 14f. the scale-16 beam as .msh (v4.1 binary, v2.2 ASCII) --------
+    beam16 = env.beam16
+    groups = [(2, 1, "clamped", "tri3",
+               plane_triangles(beam16.coords, 0, 0.0)),
+              (2, 2, "loaded", "tri3",
+               plane_triangles(beam16.coords, 0, x_end)),
+              (3, 3, "body", "tet4", beam16.conn)]
+    meshes = {}
+    for name, writer in (("beam16_v41_binary.msh", write_msh41_binary),
+                         ("beam16_v22_ascii.msh", write_msh22_ascii)):
+        path = os.path.join(tmp, name)
+        t = time.perf_counter()
+        writer(path, beam16.coords, groups)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        mesh = tt.import_mesh(path)
+        import_s = time.perf_counter() - t
+        print(f"[msh_beam16] {name} bytes={os.path.getsize(path)} "
+              f"write_s={write_s:.3f} import_s={import_s:.3f} "
+              f"nodesets={sorted(mesh.nodesets)}", flush=True)
+        check(np.array_equal(mesh.coords, env.p16b_mesh.coords)
+              and np.array_equal(mesh.conn, env.p16b_mesh.conn),
+              f"{name} does not round-trip the scale-16 beam")
+        for side, x in (("clamped", 0.0), ("loaded", x_end)):
+            check(np.array_equal(tt.select_nodes_by_set(mesh, side),
+                                 tt.nodes_at_plane(beam16, 0, x)),
+                  f"{name}: node set {side} is not the x = {x} plane")
+        os.remove(path)
+        meshes[name] = mesh
+    # the two imports hold the same arrays (checked above), so one solve
+    # stands for both: the v4.1 import, clamped and loaded by its node
+    # sets, builds the block-ELL hierarchy (float64) and saves it; phase
+    # 8's .vtu mesh under the same call loads it by the hash of mesh,
+    # material, BCs and dtype
+    mesh = meshes["beam16_v41_binary.msh"]
+    p = tt.setup_problem(mesh, dtype=f64)
+    tt.assemble_stiffness_matrix(p, *env.lame)
+    tt.apply_fixed_boundary(p, tt.select_nodes_by_set(mesh, "clamped"))
+    tt.apply_force(p, tt.select_nodes_by_set(mesh, "loaded"),
+                   [0.0, 0.0, -1.0])
+    os.environ["TOPOPT_MG_CACHE_DIR"] = os.path.join(tmp, "mg_cache")
+    try:
+        r, secs, launches = env.solve(p, None, "bell_matvec",
+                                      fn=tt.solve_system_adaptive)
+        p_vtu = env.setup(env.p16b_mesh, f64)
+        r_vtu, secs_vtu, _ = env.solve(p_vtu, None, "bell_matvec",
+                                       fn=tt.solve_system_adaptive)
+    finally:
+        os.environ["TOPOPT_MG_CACHE_DIR"] = "off"
+    d_vtu = abs(r.energy - r_vtu.energy) / abs(r_vtu.energy)
+    e_rel = rel(r.energy, "tet_beam_scale_16")
+    cached = (p_vtu._mg_build_info or {}).get("cached", False)
+    print(f"[msh_beam16] .msh route: method={r.method} iterations="
+          f"{r.iterations} energy={r.energy!r} rel_err={e_rel:.3e} "
+          f"(tol 1e-08) solve_s={secs:.3f} build_operator_s="
+          f"{r.timings['build_operator']:.3f} bell_matvec_launches="
+          f"{launches}; .vtu route: iterations={r_vtu.iterations} "
+          f"energy={r_vtu.energy!r} rel_to_vtu={d_vtu:.3e} (tol 1e-12) "
+          f"solve_s={secs_vtu:.3f} hierarchy_cached={cached}", flush=True)
+    check(cached, "the .vtu problem did not find the .msh one's hierarchy")
+    check(r.converged and d_vtu <= 1e-12 and e_rel <= 1e-8,
+          "the .msh beam's energy is off the .vtu route or the oracle")
+    del meshes, mesh, p, p_vtu
+
+    # the scale-4 tet10 beam as v4.1 binary in gmsh's node order
+    quad = env.beams[4].to_quadratic()
+    path = os.path.join(tmp, "tet10_scale4.msh")
+    write_msh41_binary(path, quad.coords,
+                       [(3, 1, "body", "tet10", quad.conn)])
+    t = time.perf_counter()
+    mesh = tt.import_mesh(path)
+    import_s = time.perf_counter() - t
+    check(mesh.element_type == "tet10"
+          and np.array_equal(mesh.conn, quad.conn),
+          "the tet10 .msh was not read back into VTK order")
+    p = env.setup(mesh, f64)
+    r, secs, launches = env.solve(p, env.CG, "tet10_apply")
+    e_rel = rel(r.energy, "tet10_beam_scale_4")
+    print(f"[msh_tet10] dofs={p.n_dofs} import_s={import_s:.3f} "
+          f"method={r.method} iterations={r.iterations} energy={r.energy!r} "
+          f"rel_err={e_rel:.3e} (tol 1e-08) solve_s={secs:.3f} "
+          f"tet10_apply_launches={launches}", flush=True)
+    check(r.converged and e_rel <= 1e-8, f"tet10 .msh rel_err {e_rel:.3e}")
+    del p, mesh
+
+    # the scale-8 beam through .inp: read, solve, and convert to .vtu
+    beam = env.beam
+    path = os.path.join(tmp, "beam8.inp")
+    write_inp(path, beam.coords, beam.conn)
+    t = time.perf_counter()
+    mesh = tt.read_inp_mesh(path)
+    import_s = time.perf_counter() - t
+    check(np.array_equal(mesh.coords, beam.coords)
+          and np.array_equal(mesh.conn, beam.conn),
+          ".inp does not round-trip the scale-8 beam")
+    p = env.setup(mesh, f64)
+    r, secs, launches = env.solve(p, env.CG, "tet4_apply")
+    e_rel = rel(r.energy, "tet_beam_scale_8")
+    t = time.perf_counter()
+    ok = tt.inp_to_vtu(path, os.path.join(tmp, "beam8_from_inp"),
+                       verbose=False)
+    back = tt.read_vtu_mesh(os.path.join(tmp, "beam8_from_inp.vtu"))
+    convert_s = time.perf_counter() - t
+    print(f"[inp_beam8] import_s={import_s:.3f} method={r.method} "
+          f"iterations={r.iterations} energy={r.energy!r} rel_err="
+          f"{e_rel:.3e} (tol 1e-08) solve_s={secs:.3f} inp_to_vtu={ok} "
+          f"convert_and_read_s={convert_s:.3f}", flush=True)
+    check(r.converged and e_rel <= 1e-8, f".inp beam rel_err {e_rel:.3e}")
+    check(ok and np.array_equal(back.coords, beam.coords)
+          and np.array_equal(back.conn, beam.conn),
+          "inp_to_vtu does not round-trip the scale-8 beam")
+
+
 def dname_of(dtype):
     return str(dtype).split(".")[1]
 
@@ -1256,16 +1809,18 @@ def main() -> int:
             "max_abs_err_fp32": errs[(name, label, "float32")]}
          for name in kernel_fns for label in shapes[name]}), flush=True)
 
-    def solve(problem, config, kernel):
-        """One main-path solve: counts set to 0 just before, read after."""
+    def solve(problem, config, kernel, method="cg", fn=None):
+        """One main-path solve: counts set to 0 just before, read after.
+        ``fn`` is the entry point (``tt.solve_system`` by default); the
+        reported method must be ``method`` unless that is None."""
         ek.reset_launch_counts()
         st.reset_launch_counts()
         bo.reset_launch_counts()
         kk.reset_launch_counts()
         el.reset_launch_counts()
+        fn = fn or tt.solve_system
         t = time.perf_counter()
-        result = (tt.solve_system(problem, config) if config is not None
-                  else tt.solve_system(problem))
+        result = fn(problem, config) if config is not None else fn(problem)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches = {**ek.LAUNCHES, **st.LAUNCHES, **bo.LAUNCHES,
@@ -1273,8 +1828,8 @@ def main() -> int:
         for n, c in launches.items():
             main_path_launches[n] += c
         check(launches[kernel] > 0, f"{kernel} was not launched by the solve")
-        check(result.method == "cg",
-              f"solve took route {result.method!r}, not cg")
+        check(method is None or result.method == method,
+              f"solve took route {result.method!r}, not {method}")
         check(np.all(np.isfinite(result.u)), "non-finite displacements")
         check(np.all(np.isfinite(result.von_mises)), "non-finite von Mises")
         return result, seconds, launches[kernel]
@@ -2573,6 +3128,23 @@ def main() -> int:
     for name in ("tet4_ke_cse", "tet4_ke_lanes", "bell_ablate"):
         check(main_path_launches[name] > 0,
               f"{name} was not launched on the main path")
+
+    # -- 14. the robust ladder, solve_system_adaptive, the readers ---------
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    beams = {4: tt.generate_grid_tet(50, 16, 4, (0, 0, 0), BEAM_BOX),
+             8: beam, 16: beam16}
+    ladder = ladder_phase(types.SimpleNamespace(
+        dev=dev, check=check, solve=solve, setup=setup, profile=profile,
+        beam=beam, beams=beams, oracles=oracles))
+    print("[ladder] " + json.dumps(ladder), flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        reader_phase(types.SimpleNamespace(
+            dev=dev, check=check, solve=solve, setup=setup, CG=CG,
+            beam=beam, beam16=beam16, beams=beams, p16b_mesh=p16b.mesh,
+            oracles=oracles, lame=(lam0, mu0), tmp=tmp))
+    print(f"[phase14] seconds={time.perf_counter() - t14:.1f}", flush=True)
 
     print(f"[device] {smi}")
     print(json.dumps({"kernels": records}))

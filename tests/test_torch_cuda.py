@@ -282,6 +282,38 @@ def test_multigrid_solve_on_cuda_matches_cpu(cuda):
         <= 1e-10 * out["cpu"].energy
 
 
+@pytest.mark.parametrize("method, restart", [
+    ("minres", 100), ("bicgstab", 100), ("gmres", 100), ("gmres", 10)])
+def test_robust_ladder_on_cuda_matches_cpu(cuda, method, restart):
+    """The ladder's Krylov methods on the card (B1 under them) take their
+    CPU float64 counts.  The 4x2x2 beam at tolerance 1e-6 is one on which
+    moving f by one part in 1e15 moves no count, so the dots' other
+    summation order on the card cannot either.  GMRES runs unrestarted
+    (56 iterations) and restarted every 10 (195 iterations, the ladder's
+    restarted path; every 5 the energy moves by 6e-7 under such moves of
+    f).  Both iterates meet the same stopping test, so their energies
+    agree to the tolerance's scale (BiCGSTAB's iterates differ by 2e-8 of
+    the energy here, its recurrence carrying the rounding further)."""
+    mesh = tt.generate_grid_tet(4, 2, 2, (0, 0, 0), (4.0, 2.0, 2.0))
+    config = tt.SolverConfig(method=method, preconditioner="block_diagonal",
+                             tolerance=1e-6, max_iterations=2000,
+                             restart=restart, verbose=False)
+    out = {}
+    for device in ("cpu", "cuda"):
+        problem = tt.cantilever_beam(mesh, dtype=torch.float64,
+                                     device=device)
+        ek.reset_launch_counts()
+        out[device] = tt.solve_system(problem, config)
+        assert (ek.LAUNCHES["tet4_apply"] > 0) == (device == "cuda")
+    assert out["cuda"].method == out["cpu"].method == method
+    assert out["cuda"].converged
+    assert out["cuda"].iterations == out["cpu"].iterations
+    if restart < 100:
+        assert out["cpu"].iterations > restart
+    assert abs(out["cuda"].energy - out["cpu"].energy) \
+        <= 1e-7 * out["cpu"].energy
+
+
 # ---------------------------------------------------------------------------
 # block-ELL kernels (csrc/bell_apply.cu)
 # ---------------------------------------------------------------------------

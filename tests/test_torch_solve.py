@@ -199,8 +199,6 @@ def test_cantilever_auto_selects_direct_below_50k(beam_tet_path):
     # material with lam = 0, Poisson's ratio 0, needs) is not ported
     (dict(method="cg", preconditioner="multigrid", verbose=False),
      "item 6"),
-    (dict(method="minres", verbose=False), "item 9"),
-    (dict(method="cg", verbose=True), "item 9"),
 ])
 def test_unported_routes_raise(beam2, kwargs, item):
     problem = tt.problem_from_numpy(_state(beam2), device="cpu",

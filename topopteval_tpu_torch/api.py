@@ -12,14 +12,17 @@ block-Jacobi PCG (``cg``) with float64 dots, multigrid PCG
 (``preconditioner="multigrid"``) on generated tet4 boxes through the
 stencil hierarchy of fem/multigrid.py and on every other mesh through the
 block-ELL hierarchy of fem/bell.py (or, with ``TOPOPT_MG=galerkin``, the
-Galerkin voxel hierarchy of fem/multigrid.py), float32 PCG inside float64
-host-residual refinement, and the backward-error gate with its direct
-fallback.  These raise ``NotImplementedError`` naming their ROADMAP item:
-``devices=`` (multi-device solves, item 13), ``method`` ``minres``,
-``gmres`` or ``bicgstab`` and ``verbose=True`` outside multigrid (the
-robust ladder, item 9), a ``.msh`` mesh (item 10), and the block-ELL
-route where it needs the monolithic build: lam or mu <= 0, a skeleton
-over its byte budget, or a skeleton mismatch (item 6).
+Galerkin voxel hierarchy of fem/multigrid.py), the robust ladder of
+fem/robust.py (``minres``, ``gmres``, ``bicgstab``, and ``cg`` with
+``verbose=True`` outside multigrid: the chosen method, then plain CG at
+10x the tolerance, then the host direct solve), float32 inner solves
+inside float64 host-residual refinement, and the backward-error gate
+with its direct fallback.  ``solve_system_adaptive`` and
+``solve_system_robust`` are the reference's size-switched and
+diagnosed entry points.  These raise ``NotImplementedError`` naming their
+ROADMAP item: ``devices=`` (multi-device solves, item 13), and the
+block-ELL route where it needs the monolithic build: lam or mu <= 0, a
+skeleton over its byte budget, or a skeleton mismatch (item 6).
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .config import ADAPTIVE_DOF_THRESHOLD, DIRECT_LAST_RESORT_DOFS, SolverConfig
+from .config import (ADAPTIVE_DOF_THRESHOLD, DIRECT_LAST_RESORT_DOFS,
+                     SolverConfig, adaptive_config)
 from .fem.bc import DirichletBC, free_mask_from_bcs
 from .fem.host_operator import HostFineOperator
 from .fem.operator import StiffnessOperator, assemble_scipy
@@ -55,15 +59,16 @@ _REFINE_INNER_FLOOR = 1e-7
 
 
 def import_mesh(path: str) -> Mesh:
-    """Read a .vtu mesh (reference: MeshImport.jl:20-164)."""
+    """Read a .vtu or .msh mesh (reference: MeshImport.jl:20-164)."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".vtu":
         log(f"Importing VTU mesh from {path}...")
         from .io.vtu import read_vtu_mesh
         return read_vtu_mesh(path)
     if ext == ".msh":
-        raise NotImplementedError(
-            "GMSH import is not ported yet (ROADMAP Queue A item 10)")
+        log(f"Importing GMSH mesh from {path}...")
+        from .io.gmsh import read_msh_mesh
+        return read_msh_mesh(path)
     raise ValueError(f"Unsupported mesh format: {ext}. "
                      "Only .msh and .vtu formats are supported.")
 
@@ -590,22 +595,15 @@ def _build_preconditioner(op, config: SolverConfig):
     if name in ("block_diagonal", "ilu", "ichol"):
         return block_jacobi_preconditioner(op.node_blocks_raw(),
                                            op.free_mask)
+    if name == "multigrid":
+        # the V-cycle needs the problem mesh; solve_system takes the cg
+        # route to it before reaching here, so the other Krylov methods
+        # degrade to the strongest mesh-free option
+        print_warning("multigrid preconditioning is only wired to the CG "
+                      "path; using block-diagonal instead")
+        return block_jacobi_preconditioner(op.node_blocks_raw(),
+                                           op.free_mask)
     raise ValueError(f"unknown preconditioner {name!r}")
-
-
-def _check_ported(config: SolverConfig, method: str, devices) -> None:
-    if devices is not None:
-        raise NotImplementedError(
-            "multi-device solves are not ported yet (ROADMAP Queue A "
-            "item 13)")
-    if method in ("minres", "gmres", "bicgstab"):
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet (ROADMAP Queue A item 9)")
-    if (method == "cg" and config.verbose
-            and config.preconditioner != "multigrid"):
-        raise NotImplementedError(
-            "the verbose=True robust solver ladder is not ported yet "
-            "(ROADMAP Queue A item 9); pass verbose=False for plain PCG")
 
 
 def solve_system(problem: Problem,
@@ -618,10 +616,13 @@ def solve_system(problem: Problem,
     timer = PhaseTimer()
     config = config or _default_config()
     method = config.method
+    if devices is not None:
+        raise NotImplementedError(
+            "multi-device solves are not ported yet (ROADMAP Queue A "
+            "item 13)")
     if method == "auto":
         method = ("direct" if problem.n_dofs < ADAPTIVE_DOF_THRESHOLD
                   else "cg")
-    _check_ported(config, method, devices)
 
     M_mg = None
     with timer.phase("build_operator"):
@@ -660,11 +661,17 @@ def solve_system(problem: Problem,
         u_np = direct_solve(K, np.asarray(problem.f)[:n] * mask_np)
         return torch.as_tensor(u_np, dtype=dtype, device=device)
 
+    def _record_refine(system):
+        for name in ("build_seconds", "matvec_seconds"):
+            timer.records[f"refine_host_{name}"] = PhaseRecord(
+                f"refine_host_{name}", getattr(system, name))
+
     if method == "direct":
         u = _host_direct()
         niter, rnorm, conv = 1, 0.0, True
-    else:
-        # multigrid takes this plain-PCG path whatever ``verbose`` says
+    elif method == "cg" and (M_mg is not None or not config.verbose):
+        # plain PCG without the robust ladder's bookkeeping; multigrid
+        # takes this path whatever ``verbose`` says
         M = M_mg if M_mg is not None else _build_preconditioner(op, config)
         if want_refine:
             if is_cm:                   # BellSystem.matvec64, fp64 scipy
@@ -691,9 +698,7 @@ def solve_system(problem: Problem,
                 record_history=config.history, dtype=dtype)
             u = torch.as_tensor(u64, dtype=dtype, device=device)
             energy64 = 0.5 * float(u64 @ f64)
-            for name in ("build_seconds", "matvec_seconds"):
-                timer.records[f"refine_host_{name}"] = PhaseRecord(
-                    f"refine_host_{name}", getattr(system, name))
+            _record_refine(system)
         else:
             x0_dev = None
             if x0 is not None:
@@ -707,10 +712,48 @@ def solve_system(problem: Problem,
             u, niter, rnorm, conv = (res.x, res.niter, res.residual_norm,
                                      res.converged)
             history = res.history
-        if not conv:
+        if config.verbose:
+            from .fem.robust import print_convergence_report
+            print_convergence_report(config, "cg(multigrid)", niter, rnorm,
+                                     conv, history)
+        elif not conv:
             print_warning(
                 f"Krylov solver did not converge after {niter} iterations "
                 f"(residual {rnorm:.3e}, target {config.tolerance:.1e})")
+    else:
+        # the robust ladder (fem/robust.py): the chosen method, plain CG
+        # at 10x the tolerance, then the host direct solve
+        from .fem.robust import _DirectFallback, solve_with_krylov
+        try:
+            if want_refine:
+                # the ladder's inner solves inside the same float64-
+                # certified refinement as the plain route
+                system = _HostRefineSystem(problem)
+                f64 = np.asarray(problem.f, np.float64)[:n] * system.mask
+                meths = []
+
+                def _inner(rhs, left, tol_inner):
+                    ui, ni, _rn, _cv, hist, m_ = solve_with_krylov(
+                        op, rhs, method,
+                        dataclasses.replace(config, tolerance=tol_inner,
+                                            max_iterations=left))
+                    meths.append(m_)
+                    return ui, ni, hist
+
+                u64, niter, rnorm, conv, history, passes = _refined_generic(
+                    system, _inner, f64, config.tolerance,
+                    config.max_iterations, device,
+                    record_history=config.history, dtype=dtype)
+                u = torch.as_tensor(u64, dtype=dtype, device=device)
+                energy64 = 0.5 * float(u64 @ f64)
+                method = (meths[-1] if meths else method) + "+refine"
+                _record_refine(system)
+            else:
+                u, niter, rnorm, conv, history, method = \
+                    solve_with_krylov(op, f_dev, method, config)
+        except _DirectFallback:
+            u = _host_direct()
+            niter, rnorm, conv, method = 1, 0.0, True, "direct(fallback)"
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_time = time.perf_counter() - t0
@@ -800,6 +843,60 @@ def _finish_result(problem: Problem, u, energy: float, method: str,
 # assembly time (reference keeps separate solve_system_simp,
 # FiniteElementAnalysis.jl:831-862)
 solve_system_simp = solve_system
+
+
+def solve_system_adaptive(problem: Problem) -> SolveResult:
+    """Size-based direct/iterative switch (reference:
+    FiniteElementAnalysis.jl:570-598).
+
+    Below 50,000 DOFs the default solve (a direct solve); above, multigrid
+    PCG with the reference's large-problem settings (``adaptive_config``).
+    The JAX package sends non-solid meshes to the robust ladder instead;
+    a :class:`Problem` here always holds a solid mesh (``setup_problem``
+    refuses others)."""
+    n = problem.n_dofs
+    if n < ADAPTIVE_DOF_THRESHOLD:
+        return solve_system(problem)
+    return solve_system(problem, dataclasses.replace(
+        adaptive_config(n), method="cg", preconditioner="multigrid"))
+
+
+def solve_system_robust(problem: Problem,
+                        config: Optional[SolverConfig] = None
+                        ) -> SolveResult:
+    """Robust solve: property probe, automatic method selection,
+    pre-solve diagnostics, then the Krylov fallback ladder (reference:
+    RobustSolver.jl:530-621).  Uniform and SIMP materials alike (the
+    reference's solve_system_robust_simp, RobustSolver.jl:645-734, is the
+    same flow with the assembled SIMP material)."""
+    from .fem.robust import (check_operator_properties,
+                             print_presolve_diagnostics,
+                             select_solver_method)
+    config = config or SolverConfig()
+    op = problem.build_operator(with_bc=True)
+    props = check_operator_properties(op)
+    method = select_solver_method(op, config, props)
+    print_presolve_diagnostics(op, config, method,
+                               simp=problem.material is not None,
+                               problem=problem)
+    del op
+    result = solve_system(problem, dataclasses.replace(config,
+                                                       method=method))
+    if config.verbose:
+        log(f"\nSolve time: {result.solve_time:.2f} seconds")
+        log(f"Solution vector norm: {np.linalg.norm(result.u)}")
+        log("\n" + "=" * 60)
+        tag = " (SIMP)" if problem.material is not None else ""
+        log(f"FINAL ANALYSIS RESULTS{tag}")
+        log("=" * 60)
+        log(f"Deformation energy: {result.energy:.6f} J")
+        log(f"Maximum von Mises stress: {result.max_von_mises:.2f} Pa")
+        log(f"Max stress location: cell {result.max_stress_cell}")
+        log("=" * 60)
+    return result
+
+
+solve_system_robust_simp = solve_system_robust
 
 
 # ---------------------------------------------------------------------------

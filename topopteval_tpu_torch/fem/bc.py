@@ -100,6 +100,19 @@ def select_nodes_by_circle(mesh: Mesh, center: Sequence[float],
     return sel
 
 
+def select_nodes_by_set(mesh: Mesh, name: str) -> np.ndarray:
+    """Nodes of a NAMED set imported with the mesh (a gmsh physical
+    surface group, io/gmsh.py): FerriteGmsh carries $PhysicalNames groups
+    through ``togrid`` as named sets usable for BC selection (reference:
+    MeshImport.jl:28)."""
+    try:
+        return np.asarray(mesh.nodesets[name], dtype=np.int64)
+    except KeyError:
+        raise KeyError(
+            f"mesh has no nodeset {name!r}; available: "
+            f"{sorted(mesh.nodesets)}") from None
+
+
 def nodes_at_plane(mesh: Mesh, axis: int, value: float,
                    tol: float = 1e-6) -> np.ndarray:
     """Brute-force axis-aligned node selection over ALL nodes (reference:
@@ -148,3 +161,15 @@ def free_mask_from_bcs(n_dofs: int,
     for bc in bcs:
         mask[bc.fixed_dofs] = 0.0
     return mask
+
+
+def precompute_surface_nodes(mesh: Mesh) -> SurfaceTopology:
+    """Extract the surface now rather than at the first selection
+    (reference: SelectNodesForBC.jl:385-398)."""
+    return mesh.surface()
+
+
+def clear_surface_cache(mesh: Mesh) -> None:
+    """Drop the cached surface topology (reference: SelectNodesForBC.jl:
+    370-382, a global cache there, one per mesh here)."""
+    mesh.clear_surface_cache()

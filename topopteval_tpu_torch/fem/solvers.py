@@ -1,24 +1,47 @@
-"""Preconditioned conjugate gradients and the host direct solve
-(counterpart of ``topopteval_tpu.fem.solvers``; reference: Krylov.jl
-dispatch in RobustSolver.jl:279-507 and the CHOLMOD backslash,
+"""Krylov solvers and the host direct solve (counterpart of
+``topopteval_tpu.fem.solvers``; reference: Krylov.jl dispatch in
+RobustSolver.jl:279-507 and the CHOLMOD backslash,
 FiniteElementAnalysis.jl:547).
 
-``cg`` keeps the JAX package's recurrence and Krylov.jl's stopping rule
-``‖r‖ ≤ atol + rtol·‖r0‖`` with ``atol = rtol = tol`` (RobustSolver.jl:
-294-300).  Dots accumulate in float64 whatever the working dtype.  The
-loop runs eagerly on the operator's device; each iteration reads ‖r‖ back
-to the host for the stopping test.  Vectors are updated in place.
+``cg``, ``minres``, ``bicgstab`` and ``gmres`` keep the JAX package's
+recurrences and stopping tests: Krylov.jl's ``‖r‖ ≤ atol + rtol·‖r0‖``
+with ``atol = rtol = tol`` (RobustSolver.jl:294-300), on the recurrence
+residual (CG, BiCGSTAB), on MINRES's ``phibar`` and on GMRES's
+preconditioned residual estimate.  Dots accumulate in float64 whatever
+the working dtype.  Each loop runs eagerly on the operator's device and
+reads its stopping scalar back to the host once an iteration.
+``A`` is anything with ``.matvec`` or a dense 2-D matrix.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..ops.elements import _inv3x3
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseOperator:
+    """A dense [n, n] matrix as an operator (tests, small cases)."""
+
+    K: torch.Tensor
+
+    def matvec(self, u: torch.Tensor) -> torch.Tensor:
+        return self.K @ u
+
+
+def _wrap_operator(A):
+    if hasattr(A, "matvec"):
+        return A
+    A = torch.as_tensor(A)
+    if A.dim() == 2:
+        return DenseOperator(A)
+    raise TypeError("A must expose .matvec or be a dense 2D array")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +80,7 @@ def cg(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, M=None,
     """Preconditioned conjugate gradients for SPD operators (the
     reference's ``Krylov.cg`` path, RobustSolver.jl:332-338).  ``A``
     exposes ``.matvec``."""
+    A = _wrap_operator(A)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - A.matvec(x)
     z = apply_preconditioner(M, r)
@@ -83,6 +107,213 @@ def cg(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, M=None,
             hist.append(rnorm)
     return KrylovResult(x, it, rnorm, rnorm <= eps,
                         np.asarray(hist) if record_history else None)
+
+
+def _pnorm(r: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp_min(_dot(r, r), 0.0))
+
+
+def minres(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, M=None,
+           tol: float = 1e-8, maxiter: int = 10000,
+           record_history: bool = False) -> KrylovResult:
+    """Paige-Saunders MINRES for symmetric (possibly indefinite) operators
+    with an SPD preconditioner (the reference dispatches ``:minres`` for
+    symmetric-indefinite matrices, RobustSolver.jl:210-211, 340-345).
+
+    Stops when ``phibar ≤ tol + tol·β₁`` and reports the true residual
+    ‖b − A x‖ of a fresh matvec (RobustSolver.jl:469)."""
+    A = _wrap_operator(A)
+    dtype = b.dtype
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    r1 = b - A.matvec(x)
+    y = apply_preconditioner(M, r1)
+    beta1 = torch.sqrt(torch.clamp_min(_dot(r1, y), 0.0))
+    eps0 = float(tol + tol * beta1)
+    f64 = dict(dtype=torch.float64, device=b.device)
+    r2 = r1
+    w = w2 = torch.zeros_like(b)
+    oldb = torch.zeros((), **f64)
+    beta, phibar = beta1, beta1
+    dbar = torch.zeros((), **f64)
+    epsln = torch.zeros((), **f64)
+    cs = torch.full((), -1.0, **f64)
+    sn = torch.zeros((), **f64)
+    rnorm = float(beta1)
+    hist = [rnorm] if record_history else None
+    it = 0
+    while it < maxiter and rnorm > eps0:
+        v = ((1.0 / beta) * y.double()).to(dtype)
+        yv = A.matvec(v)
+        if it >= 1:
+            yv = yv - (beta / oldb).to(dtype) * r1
+        alfa = _dot(v, yv)
+        yv = yv - (alfa / beta).to(dtype) * r2
+        r1, r2 = r2, yv
+        y = apply_preconditioner(M, r2)
+        oldb = beta
+        beta = torch.sqrt(torch.clamp_min(_dot(r2, y), 0.0))
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        gamma = torch.clamp_min(torch.sqrt(gbar * gbar + beta * beta),
+                                1e-300)
+        cs = gbar / gamma
+        sn = beta / gamma
+        phi = cs * phibar
+        phibar = sn * phibar
+        w1, w2 = w2, w
+        w = ((v.double() - oldeps * w1.double() - delta * w2.double())
+             / gamma).to(dtype)
+        x = x + phi.to(dtype) * w
+        it += 1
+        rnorm = float(phibar)
+        if record_history:
+            hist.append(rnorm)
+    r_true = b - A.matvec(x)
+    return KrylovResult(x, it, float(torch.sqrt(_dot(r_true, r_true))),
+                        rnorm <= eps0,
+                        np.asarray(hist) if record_history else None)
+
+
+def _nonzero(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(t == 0, torch.ones_like(t), t)
+
+
+def bicgstab(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, M=None,
+             tol: float = 1e-8, maxiter: int = 10000,
+             record_history: bool = False) -> KrylovResult:
+    """van der Vorst BiCGSTAB with right preconditioning, for general
+    operators (reference: RobustSolver.jl:370-376)."""
+    A = _wrap_operator(A)
+    dtype = b.dtype
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    r = b - A.matvec(x)
+    rhat = r
+    rnorm = float(torch.sqrt(_dot(r, r)))
+    eps0 = tol + tol * rnorm
+    p = v = torch.zeros_like(b)
+    rho = alpha = omega = torch.ones((), dtype=torch.float64,
+                                     device=b.device)
+    hist = [rnorm] if record_history else None
+    it = 0
+    while it < maxiter and rnorm > eps0:
+        rho_n = _dot(rhat, r)
+        beta = (rho_n / _nonzero(rho)) * (alpha / _nonzero(omega))
+        p = r + beta.to(dtype) * (p - omega.to(dtype) * v)
+        phat = apply_preconditioner(M, p)
+        v = A.matvec(phat)
+        alpha = rho_n / _nonzero(_dot(rhat, v))
+        s = r - alpha.to(dtype) * v
+        shat = apply_preconditioner(M, s)
+        t = A.matvec(shat)
+        omega = _dot(t, s) / _nonzero(_dot(t, t))
+        x = x + alpha.to(dtype) * phat + omega.to(dtype) * shat
+        r = s - omega.to(dtype) * t
+        rho = rho_n
+        it += 1
+        rnorm = float(torch.sqrt(_dot(r, r)))
+        if record_history:
+            hist.append(rnorm)
+    return KrylovResult(x, it, rnorm, rnorm <= eps0,
+                        np.asarray(hist) if record_history else None)
+
+
+def _gmres_run(A, b, x0, tol, M, maxiter, m, record_history):
+    """One restarted GMRES(m) run: left preconditioning, modified
+    Gram-Schmidt Arnoldi on the device, the Hessenberg column and its
+    Givens rotations in float64 on the host (one read of the column an
+    iteration).  Returns (x, iterations, estimate, converged, history)."""
+    dtype = b.dtype
+    n = b.shape[0]
+
+    def prec(r):
+        return apply_preconditioner(M, r)
+
+    beta0 = float(_pnorm(prec(b - A.matvec(x0))))
+    eps0 = tol + tol * beta0
+    hist = [beta0] if record_history else None
+    x, it, res = x0, 0, beta0
+    while it < maxiter and res > eps0:
+        r = prec(b - A.matvec(x))
+        beta = _pnorm(r)
+        V = torch.zeros((m + 1, n), dtype=dtype, device=b.device)
+        V[0] = (r / _nonzero(beta)).to(dtype)
+        Hr = np.zeros((m + 1, m))            # rotated: upper triangular
+        cs = np.ones(m)
+        sn = np.zeros(m)
+        g = np.zeros(m + 1)
+        g[0] = res = float(beta)
+        j = 0
+        while j < m and res > eps0 and it < maxiter:
+            w = prec(A.matvec(V[j]))
+            hs = []
+            for i in range(j + 1):          # rows past j are still zero
+                hij = _dot(V[i], w)
+                w = torch.addcmul(w, V[i], hij.to(dtype), value=-1.0)
+                hs.append(hij)
+            hnorm = _pnorm(w)
+            hcol = np.zeros(m + 1)
+            hcol[: j + 2] = torch.stack(hs + [hnorm]).cpu().numpy()
+            if hcol[j + 1] > 0:
+                V[j + 1] = (w.double() / hnorm).to(dtype)
+            for i in range(j):              # rotations of earlier steps
+                hi, hi1 = hcol[i], hcol[i + 1]
+                hcol[i] = cs[i] * hi + sn[i] * hi1
+                hcol[i + 1] = -sn[i] * hi + cs[i] * hi1
+            denom = math.sqrt(hcol[j] * hcol[j] + hcol[j + 1] * hcol[j + 1])
+            c, s = ((1.0, 0.0) if denom == 0
+                    else (hcol[j] / denom, hcol[j + 1] / denom))
+            cs[j], sn[j] = c, s
+            hcol[j] = c * hcol[j] + s * hcol[j + 1]
+            hcol[j + 1] = 0.0
+            g_j1 = -s * g[j]
+            g[j + 1], g[j] = g_j1, c * g[j]
+            Hr[:, j] = hcol
+            res = abs(g_j1)
+            j += 1
+            it += 1
+            if record_history:
+                hist.append(res)
+        y = np.zeros(m)                     # back substitution, j columns
+        for i in range(j - 1, -1, -1):
+            dii = Hr[i, i]
+            y[i] = (g[i] - np.dot(Hr[i], y)) / (1.0 if dii == 0 else dii)
+        x = x + torch.as_tensor(y, device=b.device).to(dtype) @ V[:m]
+    return x, it, float(res), bool(res <= eps0), hist
+
+
+def gmres(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, M=None,
+          tol: float = 1e-8, maxiter: int = 10000, restart: int = 30,
+          record_history: bool = False) -> KrylovResult:
+    """Restarted GMRES with left preconditioning (reference:
+    RobustSolver.jl:348-368, restart default 30).  It stops on the
+    preconditioned residual estimate and reports the true residual.
+
+    As the reference retries a failed restarted run without the restart
+    argument, a run that does not converge is repeated once from ``x0``
+    with the Krylov space widened to ``min(maxiter, n, 200)``; the
+    iterations of both runs are counted and the history is the retry's.
+    """
+    A = _wrap_operator(A)
+    x0 = torch.zeros_like(b) if x0 is None else x0
+    n = b.shape[0]
+    restart = max(1, min(int(restart), n, int(maxiter)))
+    x, it, _, conv, hist = _gmres_run(A, b, x0, tol, M, maxiter, restart,
+                                      record_history)
+    if not conv:
+        wide = min(int(maxiter), n, 200)
+        if wide > restart:
+            from ..utils.terminal import log
+            log(f"GMRES(restart={restart}) did not converge; retrying "
+                f"unrestarted (m={wide})")
+            x, it2, _, conv, hist = _gmres_run(A, b, x0, tol, M, maxiter,
+                                               wide, record_history)
+            it += it2
+    r_true = b - A.matvec(x)
+    return KrylovResult(x, it, float(torch.sqrt(_dot(r_true, r_true))),
+                        conv, np.asarray(hist) if record_history else None)
 
 
 def direct_solve(K_csr, f: np.ndarray) -> np.ndarray:

@@ -403,3 +403,59 @@ def write_vtu(path: str, mesh: Mesh,
     for name, arr in (cell_data or {}).items():
         w.add_cell_data(name, arr)
     return w.write(path)
+
+
+def write_vtu_heterogeneous(path: str, coords: np.ndarray, cells,
+                            compress: bool = True) -> str:
+    """Write a mixed-element UnstructuredGrid: ``cells`` is a list of
+    (vtk_type_id, node_id_list).  The .inp converter writes through it
+    (the reference exports heterogeneous meshes via WriteVTK MeshCells,
+    InpToVtu.jl:109-180)."""
+    if not path.endswith(".vtu"):
+        path = path + ".vtu"
+    coords = np.ascontiguousarray(coords, dtype=np.float64)
+    conn = np.concatenate([np.asarray(c, dtype=np.int64)
+                           for _, c in cells])
+    sizes = np.array([len(c) for _, c in cells], dtype=np.int64)
+    offsets = np.cumsum(sizes)
+    types = np.array([t for t, _ in cells], dtype=np.uint8)
+
+    blocks: list = []
+    xml: list = []
+
+    def data_array(arr, name=None):
+        arr = np.ascontiguousarray(arr)
+        dtname = _DTYPE_NAMES[arr.dtype]
+        ncomp = arr.shape[1] if arr.ndim == 2 else 1
+        offset = sum(len(b) for b in blocks)
+        blocks.append(_encode_block(arr.tobytes(), compress))
+        nm = f' Name="{name}"' if name else ""
+        nc = f' NumberOfComponents="{ncomp}"' if arr.ndim == 2 else ""
+        return (f'<DataArray type="{dtname}"{nm}{nc} '
+                f'format="appended" offset="{offset}"/>')
+
+    comp = ' compressor="vtkZLibDataCompressor"' if compress else ""
+    xml.append('<?xml version="1.0"?>')
+    xml.append(f'<VTKFile type="UnstructuredGrid" version="1.0" '
+               f'byte_order="LittleEndian" header_type="UInt64"{comp}>')
+    xml.append("<UnstructuredGrid>")
+    xml.append(f'<Piece NumberOfPoints="{len(coords)}" '
+               f'NumberOfCells="{len(cells)}">')
+    xml.append("<Points>")
+    xml.append(data_array(coords))
+    xml.append("</Points>")
+    xml.append("<Cells>")
+    xml.append(data_array(conn, "connectivity"))
+    xml.append(data_array(offsets, "offsets"))
+    xml.append(data_array(types, "types"))
+    xml.append("</Cells>")
+    xml.append("</Piece>")
+    xml.append("</UnstructuredGrid>")
+    xml.append('<AppendedData encoding="raw">')
+    with open(path, "wb") as fh:
+        fh.write("\n".join(xml).encode())
+        fh.write(b"\n_")
+        for b in blocks:
+            fh.write(b)
+        fh.write(b"\n</AppendedData>\n</VTKFile>\n")
+    return path

@@ -172,6 +172,10 @@ class Mesh:
     density : optional per-cell density field
     cellsets : optional mapping name -> cell-index array (reference
         imports these from VTU cell-data fields, MeshImport.jl:129-150)
+    nodesets : optional mapping name -> node-index array (named physical
+        surface groups of a .msh import, which FerriteGmsh carries
+        through togrid, MeshImport.jl:28; selected for BCs by
+        ``fem.bc.select_nodes_by_set``)
     """
 
     def __init__(
@@ -181,6 +185,7 @@ class Mesh:
         element_type: str,
         density: Optional[np.ndarray] = None,
         cellsets: Optional[Dict[str, np.ndarray]] = None,
+        nodesets: Optional[Dict[str, np.ndarray]] = None,
     ):
         coords = np.ascontiguousarray(coords, dtype=np.float64)
         if coords.ndim != 2 or coords.shape[1] != DIM:
@@ -204,6 +209,7 @@ class Mesh:
                 f"density length ({len(self.density)}) does not match "
                 f"number of cells ({len(conn)})")
         self.cellsets: Dict[str, np.ndarray] = dict(cellsets or {})
+        self.nodesets: Dict[str, np.ndarray] = dict(nodesets or {})
         self._surface_cache = None  # lazy (reference: SelectNodesForBC.jl:30-38)
         #: set by the structured generators (grid.py): cell counts
         #: and box corners; None for an imported mesh
@@ -243,6 +249,11 @@ class Mesh:
             self._surface_cache = extract_surface(self)
         return self._surface_cache
 
+    def clear_surface_cache(self) -> None:
+        """Drop the cached surface topology (reference:
+        SelectNodesForBC.jl:379-382)."""
+        self._surface_cache = None
+
     # -- refinement ---------------------------------------------------------
 
     def to_quadratic(self) -> "Mesh":
@@ -270,7 +281,7 @@ class Mesh:
         return Mesh(np.vstack([self.coords, mid_coords]),
                     np.hstack([self.conn, mid_ids]).astype(np.int32),
                     quad_of[self.element_type], density=self.density,
-                    cellsets=self.cellsets)
+                    cellsets=self.cellsets, nodesets=self.nodesets)
 
     # -- device transfer ----------------------------------------------------
 
