@@ -130,7 +130,23 @@ few) and each failing the script on a failed check:
    ``solve_system_adaptive`` (block-ELL multigrid, float32, phase 8's
    hierarchy from its cache file), equal to phase 8's .vtu problem under
    the same call to 1e-12; the scale-4 tet10 beam as .msh in gmsh's node
-   order; the scale-8 beam through .inp, solved, and converted to .vtu.
+   order; the scale-8 beam through .inp, solved, and converted to .vtu;
+15. the port's host library and batched design sweeps: (15a) the library
+   (csrc/host/topopt_native.cpp, built with g++ in phase 1; the run fails
+   if it does not build or load) with phase 8's scale-16 block-ELL float32
+   build by phase (it took the library route) beside the same build with
+   the library off; (15b) the monolithic block-ELL build on the scale-8
+   beam from .vtu in float64: forced by the skeleton budget at nu = 0.3
+   (18 iterations as phase 8's skeleton route, the two energies as close
+   as their true residuals allow, both within 1e-8 of
+   data/oracle_energies.json), and taken by dispatch at nu = 0
+   (lam = 0), within 1e-8 of the stencil multigrid route on the generated
+   beam; (15c) BASELINE config 5 at full width: 64 SIMP densities x 4 tip
+   loads on the 122,880-tet 80x32x8 box through ``evaluate_design_batch``
+   in float32 (every lane converged, lanes per second, iterations, device
+   kernels per iteration), three sampled lanes within 1e-3 of the port's
+   float64 solve of that lane, and the SIMP Hex8 fixture's batch energy
+   in float64 within 1e-6 of ``solve_system_simp``.
 
 The line before last is one JSON object with a record per kernel; the
 last line is the run's contract line.  Imports nothing of JAX.
@@ -1670,6 +1686,266 @@ def reader_phase(env):
           "inp_to_vtu does not round-trip the scale-8 beam")
 
 
+def host_library_phase(env):
+    """15a/15b: phase 8's scale-16 block-ELL build by phase with the host
+    library and without it, then the monolithic block-ELL build on the
+    scale-8 beam from .vtu in float64, forced at nu = 0.3 and taken by
+    dispatch at nu = 0.  ``env.p16b`` is phase 8's problem (its
+    hierarchy took the library route, ``env.info16`` its build record),
+    ``env.bell8`` phase 8's skeleton-route result at scale 8 (float64),
+    ``env.mesh8`` the scale-8 beam read back from .vtu and
+    ``env.beam`` the generated one."""
+    import numpy as np
+    import torch
+
+    import topopteval_tpu_torch as tt
+    from topopteval_tpu_torch import api as tt_api
+    from topopteval_tpu_torch.fem import bell as fb
+    from topopteval_tpu_torch.fem.operator import assemble_scipy
+    from topopteval_tpu_torch.io import native
+
+    check, dev = env.check, env.dev
+    keys = ("unit_operator", "values_matvec", "rap_chain", "coarse_pinv")
+    os.environ["TOPOPT_MG_CACHE_DIR"] = "off"
+
+    def by_phase(info):
+        merged = {**info.get("skeleton_phases", {}), **info["phases"]}
+        return {k: merged.get(k) for k in keys}
+
+    def total(info):
+        return round(info.get("skeleton_seconds", 0.0)
+                     + info["value_seconds"], 3)
+
+    # -- 15a. the scale-16 block-ELL build, library on and off -------------
+    p = env.p16b
+    lib = env.info16
+    mask = tt.free_mask_from_bcs(p.n_dofs, p.bcs)
+    with native.use_native(False):
+        sys_np, _, plain = fb.build_bell_multigrid(
+            p.mesh, p.lam, p.mu, free_mask=mask, dtype=p.dtype,
+            order=p.quad_order, device=dev)
+    check(plain["host_library"] is False and lib["host_library"] is True,
+          "the two scale-16 builds did not take the two host routes")
+    hb_lib = tt_api._get_multigrid(p)[0].host_bsr
+    hb_np = sys_np.host_bsr
+    same = all(np.array_equal(hb_lib[k], hb_np[k])
+               for k in ("indptr", "indices"))
+    a, b = np.asarray(hb_lib["data"]), np.asarray(hb_np["data"])
+    diff = float(np.abs(a - b).max() / np.abs(b).max()) if same else np.inf
+    print(f"[host_library] scale-16 block-ELL fp32 build "
+          f"({p.mesh.n_cells} tets), seconds by phase: library "
+          f"{json.dumps(by_phase(lib))} total {total(lib)}; NumPy/scipy "
+          f"{json.dumps(by_phase(plain))} total {total(plain)}", flush=True)
+    print(f"[host_library] skeleton phases: library "
+          f"{json.dumps(lib['skeleton_phases'])} NumPy/scipy "
+          f"{json.dumps(plain['skeleton_phases'])}; value phases: library "
+          f"{json.dumps(lib['phases'])} NumPy/scipy "
+          f"{json.dumps(plain['phases'])}; fine operator: same pattern "
+          f"{same}, max |library - NumPy| / max |NumPy| = {diff:.3e} "
+          f"(tol 1e-12)", flush=True)
+    check(same and diff <= 1e-12,
+          "the library and NumPy builds of the scale-16 operator differ")
+    del sys_np, hb_np, a, b
+
+    # -- 15b. the monolithic build, scale 8, float64 ------------------------
+    f64 = torch.float64
+    mesh8 = env.mesh8
+    p = env.setup(mesh8, f64)
+    mask = tt.free_mask_from_bcs(p.n_dofs, p.bcs)
+    t = time.perf_counter()
+    system, mg, info = fb.build_bell_multigrid(
+        p.mesh, p.lam, p.mu, free_mask=mask, dtype=f64, order=p.quad_order,
+        device=dev, skel_max_bytes=0)
+    build_s = time.perf_counter() - t
+    check(info["route"] == "monolithic",
+          "skel_max_bytes=0 did not force the monolithic build")
+    # hand the hierarchy to solve_system as its own build would
+    p._mg_cache = (tt_api._material_fingerprint(p), system, mg)
+    p._mg_build_info = info
+    r, secs, launches = env.solve(p, env.MG, "bell_matvec")
+    rel = env.report("mono_beam8_fp64_forced", r, secs, launches,
+                     env.oracles["tet_beam_scale_8"])
+    # two solves stopped at 1e-10 of |f| differ in energy by up to what
+    # their true residuals allow: E(u) - E* = -r.(u + u*)/2 ~ -r.u each
+    K = assemble_scipy(p.mesh, p.lam, p.mu, order=p.quad_order,
+                       free_mask=mask)
+    fm = p.f * mask
+
+    def bound(res):
+        return abs(float((fm - K @ res.u) @ res.u)) / abs(res.energy)
+
+    skel = env.bell8
+    d = abs(r.energy - skel.energy) / abs(skel.energy)
+    gate = max(1e-10, bound(r) + bound(skel))
+    print(f"[mono_beam8_fp64_forced] build_s={build_s:.2f} "
+          f"level_nodes={info['level_nodes']} phases="
+          f"{json.dumps(info['phases'])}; skeleton route (phase 8): "
+          f"iterations={skel.iterations} energy={skel.energy!r}; energy "
+          f"rel_diff={d:.3e}, the two residuals' bound {bound(r):.3e} + "
+          f"{bound(skel):.3e} (gate {gate:.3e})", flush=True)
+    check(r.converged and r.iterations == 18 and skel.iterations == 18,
+          f"monolithic scale-8 fp64: {r.iterations} iterations, the "
+          f"skeleton route {skel.iterations} (18 expected)")
+    check(d <= gate and rel <= 1e-8,
+          f"monolithic scale-8 fp64: rel_diff {d:.3e} (gate {gate:.3e}), "
+          f"rel_err {rel:.3e}")
+    del p, system, mg, K
+
+    lam0, mu0 = tt.lame_parameters(1.0, 0.0)
+    energies = {}
+    for tag, mesh, kernel in (("mono_beam8_nu0_fp64", mesh8, "bell_matvec"),
+                              ("stencil_beam8_nu0_fp64", env.beam,
+                               "stencil_plane")):
+        p = tt.setup_problem(mesh, dtype=f64, device=dev)
+        tt.assemble_stiffness_matrix(p, lam0, mu0)
+        tt.apply_fixed_boundary(p, tt.nodes_at_plane(p.mesh, 0, 0.0))
+        tt.apply_force(p, tt.nodes_at_plane(p.mesh, 0, 60.0),
+                       [0.0, 0.0, -1.0])
+        t = time.perf_counter()
+        r, secs, launches = env.solve(p, env.MG, kernel)
+        energies[tag] = r.energy
+        env.report(tag, r, secs, launches, r.energy)
+        check(r.converged, f"{tag} did not converge")
+        if kernel == "bell_matvec":
+            info = p._mg_build_info
+            print(f"[{tag}] route={info['route']} level_nodes="
+                  f"{info['level_nodes']} build_s={info['value_seconds']} "
+                  f"phases={json.dumps(info['phases'])}", flush=True)
+            check(info["route"] == "monolithic",
+                  "nu = 0 did not take the monolithic build")
+        del p
+    d = (abs(energies["mono_beam8_nu0_fp64"]
+             - energies["stencil_beam8_nu0_fp64"])
+         / abs(energies["stencil_beam8_nu0_fp64"]))
+    print(f"[mono_beam8_nu0_fp64] against the stencil route: rel_diff="
+          f"{d:.3e} (tol 1e-8)", flush=True)
+    check(d <= 1e-8, f"nu = 0: the two routes differ by {d:.3e}")
+
+
+def sweep_phase(env):
+    """15c: BASELINE config 5 at full width through
+    ``evaluate_design_batch`` in float32 (``env.dims`` hexes over
+    (6, 2, 1), ``env.B`` densities, 4 loads), three sampled lanes against
+    the port's float64 block-Jacobi CG of the same lane, and the SIMP Hex8
+    fixture's batch in float64 against ``solve_system_simp``."""
+    import numpy as np
+    import torch
+
+    import topopteval_tpu_torch as tt
+    from topopteval_tpu_torch.parallel import sweep
+
+    check, dev = env.check, env.dev
+    f32, f64 = torch.float32, torch.float64
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # the case of tools/bench_sweep.build_case, rebuilt with the port
+    mesh = tt.generate_grid_tet(*env.dims, (0, 0, 0), (6.0, 2.0, 1.0))
+    p = tt.setup_problem(mesh, dtype=f32, device=dev)
+    tt.assemble_stiffness_matrix(p, *tt.lame_parameters(1.0, 0.3))
+    tt.apply_fixed_boundary(p, tt.nodes_at_plane(mesh, 0, 0.0))
+    tip = tt.nodes_at_plane(mesh, 0, 6.0)
+    tt.apply_force(p, tip, [0.0, 0.0, -1.0])
+    material = tt.create_simp_material_model(1.0, 0.3, 1e-9, 3.0)
+    B, L = env.B, 4
+    rng = np.random.default_rng(0)
+    dens = rng.uniform(0.05, 1.0, (B, mesh.n_cells))
+    dens[:, : mesh.n_cells // 4] = 1.0          # stiff load path
+    loads = np.zeros((L, mesh.n_dofs))
+    dirs = [(0, 0, -1.0), (0, -1.0, 0), (1.0, 0, 0), (0, 0.7, -0.7)]
+    for j in range(L):
+        for c, v in enumerate(dirs[j % 4]):
+            loads[j, tip * 3 + c] = v / tip.size
+    sync()
+    t = time.perf_counter()
+    e, it, cv = tt.evaluate_design_batch(p, dens, loads, material=material,
+                                         tol=1e-6, maxiter=20000)
+    sync()
+    sweep_s = time.perf_counter() - t
+    print(f"[sweep] {mesh.n_cells} tets, {B}x{L} lanes float32 tol 1e-6: "
+          f"seconds={sweep_s:.3f} lanes_per_s={B * L / sweep_s:.3f} "
+          f"converged={int(cv.sum())}/{cv.size} iterations median="
+          f"{float(np.median(it))} min={int(it.min())} max={int(it.max())} "
+          f"lane_iterations_total={int(it.sum())}", flush=True)
+    check(cv.all(), f"{int((~cv).sum())} sweep lanes did not converge")
+
+    # the iterations of one call on all lanes, as the sweep runs them
+    # (pairs, GEMM form): a 40-iteration call less a 20-iteration one, so
+    # that the set-up (block inverses, the closing energy) cancels
+    mask = tt.free_mask_from_bcs(p.n_dofs, p.bcs)
+    kernel = sweep.SweepKernel.build(mesh, 0.3, mask, dtype=f32,
+                                     full_ke=True, device=dev)
+    bi, lj = np.divmod(np.arange(B * L), L)
+    esc = torch.as_tensor(material.youngs_modulus(dens)[bi], dtype=f32,
+                          device=dev)
+    f_lanes = torch.as_tensor(loads[lj], dtype=f32, device=dev)
+
+    def run(n):
+        return sweep.sweep_compliance_pairs(kernel, esc, f_lanes, tol=0.0,
+                                            maxiter=n)
+
+    def wall(n):
+        sync()
+        t = time.perf_counter()
+        run(n)
+        sync()
+        return time.perf_counter() - t
+
+    run(2)
+    wall_ms = 1e3 * (wall(40) - wall(20)) / 20
+    d40, top, k40 = env.profile(lambda: run(40), 1)
+    d20, _, k20 = env.profile(lambda: run(20), 1)
+    device_ms, per_iter = (d40 - d20) / 20, (k40 - k20) / 20
+    busy = f"{device_ms / wall_ms:.3f}" if device_ms > 0 else "not measured"
+    print(f"[sweep] one iteration on {B * L} lanes: wall_ms={wall_ms:.3f} "
+          f"device_ms={device_ms:.3f} device_busy_share={busy} "
+          f"device_kernels_per_iteration={per_iter:.1f} lanes_per_chunk="
+          f"{min(B * L, kernel.lanes_that_fit())} bytes_per_lane="
+          f"{kernel.bytes_per_lane()}; top of the 40-iteration call (ms): "
+          + ", ".join(f"{k[:40]}={v:.3f}" for k, v in top[:6]), flush=True)
+    del kernel, esc, f_lanes
+
+    # three sampled lanes against the port's float64 solve of that lane
+    errs = []
+    for b, j in ((0, 0), (B // 2, 1), (B - 1, 3)):
+        q = tt.setup_problem(mesh, dtype=f64, device=dev)
+        tt.assemble_stiffness_matrix_simp(q, material, dens[b])
+        tt.apply_fixed_boundary(q, tt.nodes_at_plane(mesh, 0, 0.0))
+        q.f = loads[j].copy()
+        r = tt.solve_system(q, env.CG)
+        rel = abs(e[b, j] - r.energy) / abs(r.energy)
+        errs.append(rel)
+        print(f"[sweep] lane ({b},{j}): float32 sweep {float(e[b, j])!r} "
+              f"({it[b, j]} iterations), float64 CG {r.energy!r} "
+              f"({r.iterations} iterations, converged {r.converged}) "
+              f"rel_err={rel:.3e} (tol 1e-3)", flush=True)
+        check(r.converged and rel <= 1e-3,
+              f"sweep lane ({b},{j}) off the float64 solve by {rel:.3e}")
+        del q
+
+    # the SIMP Hex8 fixture, float64 (tests/test_end_to_end.py:214-222)
+    simp = tt.simp_beam(env.simp_path, dtype=f64, device=dev)
+    density = tt.extract_cell_density(env.simp_path)
+    t = time.perf_counter()
+    e1, it1, cv1 = tt.evaluate_design_batch(simp, density[None], tol=1e-10,
+                                            maxiter=20000, dtype=f64)
+    secs = time.perf_counter() - t
+    ref = tt.solve_system_simp(simp)
+    rel = abs(e1[0, 0] - ref.energy) / abs(ref.energy)
+    print(f"[sweep] SIMP Hex8 fixture float64 tol 1e-10: {float(e1[0, 0])!r} "
+          f"({it1[0, 0]} iterations, {secs:.2f} s) against "
+          f"solve_system_simp {ref.energy!r} ({ref.method}) rel_err="
+          f"{rel:.3e} (tol 1e-6)", flush=True)
+    check(cv1.all() and rel <= 1e-6,
+          f"SIMP fixture batch off solve_system_simp by {rel:.3e}")
+    print("[sweep] " + json.dumps({
+        "lanes_per_s": B * L / sweep_s, "iterations_median":
+        float(np.median(it)), "oracle_rel_errs": errs,
+        "simp_fixture_rel_err": rel}), flush=True)
+
+
 def dname_of(dtype):
     return str(dtype).split(".")[1]
 
@@ -1719,6 +1995,17 @@ def main() -> int:
     built = _build.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s "
           + ", ".join(f"{n}.cu {s:.1f} s" for n, s in built.items()),
+          flush=True)
+    # 15a (first half): the host library, built here so that every host
+    # build below takes it; no silent fallback on this path
+    from topopteval_tpu_torch.io import native as host_native
+    host_build_s = _build.build_host()
+    host_lib = host_native.load_native()
+    check(host_lib is not None,
+          f"the host library does not load: {host_native.LOAD_ERROR}")
+    print(f"[host_library] {os.path.relpath(_build.host_target(), repo)} "
+          f"version={host_lib.topopt_version()} "
+          f"build_s={host_build_s:.2f} (g++ {' '.join(_build.HOST_FLAGS)})",
           flush=True)
     for name, report in _build.PTXAS_REPORT.items():
         for line in report.splitlines():
@@ -2379,8 +2666,10 @@ def main() -> int:
               "scale-16 .vtu beam is not 1,228,800 tets / 666,315 DOFs")
         p16b = setup(mesh, torch.float32)
         r, secs, launches = solve(p16b, MG, "bell_matvec")
-        rel, _ = bell_report("bell_beam16_fp32", p16b, r, secs, launches,
-                             oracles["tet_beam_scale_16"])
+        rel, info16 = bell_report("bell_beam16_fp32", p16b, r, secs,
+                                  launches, oracles["tet_beam_scale_16"])
+        check(info16["host_library"] is True,
+              "the scale-16 block-ELL build did not take the host library")
         check(r.converged, "scale-16 block-ELL fp32 did not converge")
         check(rel <= 1e-8, f"scale-16 block-ELL fp32 rel_err {rel:.3e}")
         op16, M16 = tt_api._get_multigrid(p16b)
@@ -2506,6 +2795,7 @@ def main() -> int:
               f"scale-8 block-ELL fp64 rel_err {rel:.3e}")
         check(info["cached"] is False and info["skeleton_cached"] is False,
               "scale-8 block-ELL build was not a cold build")
+        bell8 = r8
         p8s = setup(mesh8, torch.float64, tt.models.bench_simp_density(
             100, 32, 8))
         r, secs, launches = solve(p8s, MG_SIMP, "bell_matvec")
@@ -3145,6 +3435,22 @@ def main() -> int:
             beam=beam, beam16=beam16, beams=beams, p16b_mesh=p16b.mesh,
             oracles=oracles, lame=(lam0, mu0), tmp=tmp))
     print(f"[phase14] seconds={time.perf_counter() - t14:.1f}", flush=True)
+
+    # -- 15. the host library, the monolithic build, design sweeps ----------
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        host_library_phase(types.SimpleNamespace(
+            dev=dev, check=check, solve=solve, setup=setup, report=report,
+            MG=MG, p16b=p16b, info16=info16, bell8=bell8, beam=beam,
+            oracles=oracles, mesh8=vtu_round_trip(beam, tmp,
+                                                  "beam_scale_8.vtu")))
+    del p16b
+    torch.cuda.empty_cache()
+    sweep_phase(types.SimpleNamespace(
+        dev=dev, check=check, profile=profile, CG=CG, simp_path=simp_path,
+        dims=(80, 32, 8), B=64))
+    print(f"[phase15] seconds={time.perf_counter() - t15:.1f}", flush=True)
 
     print(f"[device] {smi}")
     print(json.dumps({"kernels": records}))

@@ -16,10 +16,11 @@ float64 unless stated: the same seeded inputs go through both.
 The port's V-cycle on a hierarchy the JAX package built and saved is in
 tests/test_torch_bell_solve.py, which keeps this file under 40 s.
 
-The JAX side runs with its native host library switched off: its
-NumPy/scipy fallbacks are the port's host build, so both packages build
-the same hierarchy from the same arithmetic.  Tolerances are stated where
-they are used.
+Both packages run with their host libraries switched off, on their
+NumPy/scipy fallbacks, so both build the same hierarchy from the same
+arithmetic; the same comparison with both libraries on is in
+tests/test_torch_bell_legacy.py.  Tolerances are stated where they are
+used.
 """
 
 import jax.numpy as jnp
@@ -40,6 +41,7 @@ from topopteval_tpu.materials import SIMPMaterial, lame_parameters
 from topopteval_tpu.models import beams as jax_beams
 from topopteval_tpu.ops import pallas_bsr as jax_bsr
 import topopteval_tpu_torch as tt
+from topopteval_tpu_torch.io import native as port_native
 from topopteval_tpu_torch.fem import bell as port_bell
 from topopteval_tpu_torch.fem import multigrid as port_mg
 from topopteval_tpu_torch.ops import bell as ops_bell
@@ -62,9 +64,12 @@ LAM, MU = lame_parameters(1.0, 0.3)
 
 @pytest.fixture
 def no_native(monkeypatch):
-    """The JAX package on its NumPy/scipy host build."""
+    """Both packages on their NumPy/scipy host build (the port's host
+    library switched off too: the two builds agree only to rounding)."""
     monkeypatch.setattr(jax_native, "_LIB", None)
     monkeypatch.setattr(jax_native, "_TRIED", True)
+    with port_native.use_native(False):
+        yield
 
 
 def _random_bsr(N=300, nnzb=2500, band=40, seed=0):

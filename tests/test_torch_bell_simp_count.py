@@ -43,6 +43,7 @@ from topopteval_tpu.models import beams as jax_beams
 from topopteval_tpu.models.density import \
     bench_simp_density as jax_bench_simp_density
 import topopteval_tpu_torch as tt
+from topopteval_tpu_torch.io import native as port_native
 from topopteval_tpu_torch.fem import bell
 from topopteval_tpu_torch.fem.bell import BellSystem
 from topopteval_tpu_torch.fem.solvers import cg
@@ -69,9 +70,12 @@ def _one_blas_thread():
 
 @pytest.fixture
 def no_native(monkeypatch):
-    """The JAX package on its NumPy/scipy host build, the port's own."""
+    """Both packages on their NumPy/scipy host build (the port's host
+    library switched off too: the two builds agree only to rounding)."""
     monkeypatch.setattr(jax_native, "_LIB", None)
     monkeypatch.setattr(jax_native, "_TRIED", True)
+    with port_native.use_native(False):
+        yield
 
 
 def _jax_problem():

@@ -1284,3 +1284,92 @@ def test_element_apply_tiles_follow_a_conn_written_in_place(cuda):
         ref = plain(coords, conn, u, lam, mu)
         assert float((out - ref).abs().max()) \
             <= 1e-12 * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Batched design sweeps and the host library's hierarchy route
+# ---------------------------------------------------------------------------
+
+
+def _sweep_case():
+    """The rounding-stable case of tests/test_torch_sweep.py: a 6x3x3 box
+    over (2, 1, 1), densities in [0.7, 1], two tip loads."""
+    mesh = tt.generate_grid_tet(6, 3, 3, (0, 0, 0), (2.0, 1.0, 1.0))
+    tip = tt.nodes_at_plane(mesh, 0, 2.0)
+    mask = tt.free_mask_from_bcs(mesh.n_dofs, [tt.DirichletBC.fixed(
+        tt.nodes_at_plane(mesh, 0, 0.0))])
+    f = np.zeros(mesh.n_dofs)
+    f[tip * 3 + 2] = -1.0 / tip.size
+    material = tt.create_simp_material_model(1.0, 0.3, 1e-9, 3.0)
+    dens = np.random.default_rng(1).uniform(0.7, 1.0, (4, mesh.n_cells))
+    return mesh, mask, material.youngs_modulus(dens), np.stack([f, -0.5 * f])
+
+
+@pytest.mark.parametrize("full_ke", [False, True], ids=["einsum", "ke0"])
+def test_sweep_on_cuda_matches_its_cpu_run(cuda, full_ke):
+    from topopteval_tpu_torch.parallel import sweep
+    mesh, mask, esc, loads = _sweep_case()
+    out = []
+    for device in ("cpu", cuda):
+        kernel = sweep.SweepKernel.build(mesh, 0.3, mask,
+                                         dtype=torch.float64,
+                                         full_ke=full_ke, device=device)
+        out.append([t.cpu().numpy() for t in sweep.sweep_compliance(
+            kernel, esc, loads, tol=1e-10, maxiter=4000)])
+    (e_c, it_c, cv_c), (e_g, it_g, cv_g) = out
+    assert cv_c.all() and cv_g.all()
+    np.testing.assert_array_equal(it_g, it_c)
+    np.testing.assert_allclose(e_g, e_c, rtol=1e-10)
+
+
+def test_evaluate_design_batch_on_cuda_matches_cpu(cuda):
+    mesh, mask, esc, loads = _sweep_case()
+    res = []
+    for device in ("cpu", cuda):
+        p = tt.setup_problem(mesh, dtype=torch.float64, device=device)
+        tt.assemble_stiffness_matrix(p, *tt.lame_parameters(1.0, 0.3))
+        tt.apply_fixed_boundary(p, tt.nodes_at_plane(mesh, 0, 0.0))
+        res.append(tt.evaluate_design_batch(p, esc, loads, tol=1e-10,
+                                            maxiter=4000))
+    (e_c, it_c, cv_c), (e_g, it_g, cv_g) = res
+    assert cv_c.all() and cv_g.all()
+    np.testing.assert_array_equal(it_g, it_c)
+    np.testing.assert_allclose(e_g, e_c, rtol=1e-10)
+
+
+def test_library_hierarchy_equals_the_numpy_route(cuda, tmp_path):
+    """The scale-2 beam from .vtu: the block-ELL hierarchy built with the
+    host library and without it, on the card: the same fine operator to
+    rounding, the same MG-PCG count, energies to the solve's accuracy."""
+    from topopteval_tpu_torch.fem import bell
+    from topopteval_tpu_torch.fem.solvers import cg
+    from topopteval_tpu_torch.io import native
+    assert native.native_available(), native.LOAD_ERROR
+    beam = tt.generate_grid_tet(25, 8, 2, (0, 0, 0), (60.0, 20.0, 4.0))
+    mesh = tt.import_mesh(tt.write_vtu(str(tmp_path / "b.vtu"), beam))
+    lam, mu = tt.lame_parameters(1.0, 0.3)
+    mask = tt.free_mask_from_bcs(mesh.n_dofs, [tt.DirichletBC.fixed(
+        tt.nodes_at_plane(mesh, 0, 0.0))])
+    f = np.zeros(mesh.n_dofs)
+    tip = tt.nodes_at_plane(mesh, 0, 60.0)
+    f[tip * 3 + 2] = -1.0 / tip.size
+    out = {}
+    for enabled in (True, False):
+        with native.use_native(enabled):
+            system, mg, info = bell.build_bell_multigrid(
+                mesh, np.full(mesh.n_cells, lam), np.full(mesh.n_cells, mu),
+                free_mask=mask, dtype=torch.float64, device=cuda)
+        assert info["host_library"] is enabled
+        b = torch.as_tensor(system.to_cm(f), device=cuda) * system.free_mask
+        res = cg(system, b, M=mg, tol=1e-10, maxiter=500)
+        out[enabled] = (system.host_bsr, int(res.niter),
+                        float(system.energy(res.x)))
+    (hb1, it1, e1), (hb0, it0, e0) = out[True], out[False]
+    for key in ("indptr", "indices"):
+        np.testing.assert_array_equal(hb1[key], hb0[key])
+    a, b = np.asarray(hb1["data"]), np.asarray(hb0["data"])
+    assert np.abs(a - b).max() <= 1e-12 * np.abs(b).max()
+    assert it1 == it0
+    # two solves stopped at 1e-10 of |f| on hierarchies equal to rounding:
+    # their energies agree to the solves' accuracy (CPU: 6.5e-11)
+    assert abs(e1 - e0) <= 1e-9 * abs(e0)

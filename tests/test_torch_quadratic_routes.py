@@ -33,6 +33,7 @@ from topopteval_tpu.io import native as jax_native
 from topopteval_tpu.materials import lame_parameters
 from topopteval_tpu.models.beams import generate_grid_tet
 import topopteval_tpu_torch as tt
+from topopteval_tpu_torch.io import native as port_native
 from topopteval_tpu_torch.fem import bell as port_bell
 
 tt.set_verbosity(False)
@@ -59,6 +60,7 @@ def _close(actual, desired, rtol):
 def test_tet10_block_ell_hierarchy_equals_jax(monkeypatch):
     monkeypatch.setattr(jax_native, "_LIB", None)       # NumPy/scipy build
     monkeypatch.setattr(jax_native, "_TRIED", True)
+    monkeypatch.setattr(port_native, "_ENABLED", False)  # in both packages
     monkeypatch.setenv("TOPOPT_MG_CACHE_DIR", "off")
     mesh = generate_grid_tet(25, 8, 2, (0, 0, 0), (60.0, 20.0, 4.0)
                              ).to_quadratic()

@@ -9,7 +9,9 @@ CPU (float64 unless stated).
 - The SIMP fixture (Hex8, 1e-8 density contrast) with the same CG in
   float64, against the port's own float64 host direct oracle.
 - The routes: auto → direct below 50k DOFs, NotImplementedError for the
-  routes not ported yet, no silent CPU fallback for ``device="cuda"``.
+  route not ported yet (``devices=``), multigrid at Poisson's ratio 0
+  (the monolithic block-ELL build) against the direct solve, no silent
+  CPU fallback for ``device="cuda"``.
 - Export and result round-trips, and a subprocess check that the port
   loads neither ``jax`` nor ``topopteval_tpu``.
 
@@ -194,21 +196,29 @@ def test_cantilever_auto_selects_direct_below_50k(beam_tet_path):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    # the scale-2 state below carries no ``structured_info``: multigrid
-    # takes the block-ELL hierarchy, whose monolithic build (what a
-    # material with lam = 0, Poisson's ratio 0, needs) is not ported
+    # multi-device solves (ROADMAP Queue A item 13) are the one route not
+    # ported; the block-ELL monolithic build that a material with lam = 0
+    # (Poisson's ratio 0) needs is, and solves the same state below
     (dict(method="cg", preconditioner="multigrid", verbose=False),
-     "item 6"),
+     "item 13"),
 ])
 def test_unported_routes_raise(beam2, kwargs, item):
     problem = tt.problem_from_numpy(_state(beam2), device="cpu",
                                     dtype=torch.float64)
-    if kwargs.get("preconditioner") == "multigrid":
-        problem.lam = np.zeros_like(problem.lam)
+    problem.lam = np.zeros_like(problem.lam)
     with pytest.raises(NotImplementedError, match=item):
-        tt.solve_system(problem, tt.SolverConfig(**kwargs))
+        tt.solve_system(problem, tt.SolverConfig(**kwargs), devices=2)
     with pytest.raises(NotImplementedError, match="item 13"):
         tt.solve_system(problem, CG, devices=2)
+    # the scale-2 state carries no ``structured_info``: multigrid takes
+    # the block-ELL route, which sends lam = 0 to its monolithic build
+    result = tt.solve_system(problem, tt.SolverConfig(
+        **kwargs, tolerance=1e-10))
+    assert problem._mg_build_info["route"] == "monolithic"
+    direct = tt.solve_system(problem, tt.SolverConfig(method="direct",
+                                                      verbose=False))
+    assert result.converged
+    assert _rel(result.energy, direct.energy) <= 1e-8
 
 
 def test_cuda_device_is_never_replaced_by_cpu(beam2):

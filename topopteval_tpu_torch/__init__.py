@@ -11,7 +11,9 @@ multigrid PCG on any other mesh over hand-written block-sparse kernels
 hand-written scan-window ELL kernels), the robust solver ladder (MINRES,
 BiCGSTAB, GMRES, plain-CG and direct fallbacks, verbose diagnostics),
 nodal, volume (gravity) and
-surface-traction loads, stress recovery and VTU export.  Two probes of
+surface-traction loads, stress recovery and VTU export, and batched design
+sweeps (``evaluate_design_batch``: a density batch times load cases as
+block-Jacobi PCG lanes).  Two probes of
 kernel variants (``tools.ke_probe``, ``tools.ell_ablate``) and the four
 workflow examples (``examples.*``) run as ``python -m`` modules.
 
@@ -41,7 +43,7 @@ from .materials import (SIMPMaterial, create_material_model,
 # problem workflow
 from .api import (Problem, SolveResult, apply_fixed_boundary, apply_force,
                   apply_sliding_boundary, assemble_stiffness_matrix,
-                  assemble_stiffness_matrix_simp,
+                  assemble_stiffness_matrix_simp, evaluate_design_batch,
                   load_result, problem_from_numpy, save_result,
                   setup_problem, solve_system, solve_system_adaptive,
                   solve_system_robust, solve_system_robust_simp,
@@ -93,7 +95,7 @@ __all__ = [
     "apply_fixed_boundary", "apply_sliding_boundary", "apply_force",
     "solve_system", "solve_system_simp", "solve_system_adaptive",
     "solve_system_robust", "solve_system_robust_simp", "save_result",
-    "load_result",
+    "load_result", "evaluate_design_batch",
     "select_nodes_by_plane", "select_nodes_by_circle",
     "select_nodes_by_set", "nodes_at_plane",
     "extract_surface", "DirichletBC", "free_mask_from_bcs",

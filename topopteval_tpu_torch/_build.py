@@ -7,6 +7,11 @@ libraries have a plain C interface (no PyTorch headers), which keeps a
 build to seconds.  Nothing is built at import time: a kernel wrapper calls
 :func:`load` when it first launches, and :func:`build` compiles several
 sources at once, one nvcc process each, all started together.
+
+The host library ``csrc/host/topopt_native.cpp`` (io/native.py) is built
+the same way with g++ by :func:`build_host` into
+``build/native/libtopopt_native-<hash>.so``; its hash also covers the
+host's CPU, since ``-march=native`` code may not run on another one.
 """
 
 from __future__ import annotations
@@ -22,6 +27,10 @@ from typing import Dict, Iterable, Optional
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "kernels")
+HOST_SOURCE = os.path.join(CSRC_DIR, "host", "topopt_native.cpp")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(BUILD_DIR), "native")
+#: the flags of native/Makefile's CXXFLAGS
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -107,3 +116,50 @@ def load(name: str, path: Optional[str] = None) -> ctypes.CDLL:
         lib = ctypes.CDLL(target)
         _LOADED[name] = lib
     return lib
+
+
+def _cpu_identity() -> bytes:
+    """The host CPU's model and feature flags (``-march=native`` builds
+    for them)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as fh:
+            lines = [ln for ln in fh.read().splitlines()
+                     if ln.startswith((b"model name", b"flags"))]
+        return b"\n".join(lines[:2])
+    except OSError:
+        import platform
+        return platform.processor().encode()
+
+
+def host_target() -> str:
+    """Path of the host library built from ``HOST_SOURCE`` with
+    ``HOST_FLAGS`` for this CPU."""
+    with open(HOST_SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(HOST_FLAGS).encode()
+                                + _cpu_identity()).hexdigest()
+    return os.path.join(HOST_BUILD_DIR,
+                        f"libtopopt_native-{digest[:16]}.so")
+
+
+def build_host() -> float:
+    """Compile the host library with g++ unless it is built already;
+    returns the seconds the build took (0.0 if there was nothing to do).
+    Raises if g++ is missing or the build fails."""
+    target = host_target()
+    if os.path.exists(target):
+        return 0.0
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the host library is built on "
+                           "first use and needs a C++ compiler")
+    os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+    tmp = f"{target}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, HOST_SOURCE],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {HOST_SOURCE} (exit "
+                           f"{proc.returncode}):\n"
+                           + (proc.stdout + proc.stderr)[-2000:])
+    os.replace(tmp, target)
+    return time.perf_counter() - t0

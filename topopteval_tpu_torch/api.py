@@ -19,10 +19,10 @@ fem/robust.py (``minres``, ``gmres``, ``bicgstab``, and ``cg`` with
 inside float64 host-residual refinement, and the backward-error gate
 with its direct fallback.  ``solve_system_adaptive`` and
 ``solve_system_robust`` are the reference's size-switched and
-diagnosed entry points.  These raise ``NotImplementedError`` naming their
-ROADMAP item: ``devices=`` (multi-device solves, item 13), and the
-block-ELL route where it needs the monolithic build: lam or mu <= 0, a
-skeleton over its byte budget, or a skeleton mismatch (item 6).
+diagnosed entry points.  ``devices=`` (multi-device solves) raises
+``NotImplementedError`` naming its ROADMAP item, Queue A item 13.
+``evaluate_design_batch`` evaluates a density batch times load cases by
+batched block-Jacobi PCG lanes (parallel/sweep.py).
 """
 
 from __future__ import annotations
@@ -934,3 +934,95 @@ def load_result(path: str) -> SolveResult:
         residual_norm=float(z["residual_norm"]),
         converged=bool(z["converged"]), solve_time=float(z["solve_time"]),
         history=hist if hist.size else None)
+
+
+# ---------------------------------------------------------------------------
+# Batched design evaluation (BASELINE.md config 5)
+# ---------------------------------------------------------------------------
+
+
+def evaluate_design_batch(problem: Problem, densities: np.ndarray,
+                          load_cases: Optional[np.ndarray] = None,
+                          material: Optional[SIMPMaterial] = None,
+                          tol: float = 1e-6, maxiter: int = 5000,
+                          dtype=None, lane_chunk: Optional[int] = None):
+    """Compliance energies for a density batch × load cases on the
+    problem's device, every (density, load) pair one block-Jacobi PCG lane
+    sharing the mesh's element geometry (parallel/sweep.py).
+
+    Parameters
+    ----------
+    densities : [B, C] density fields
+    load_cases : [L, ndof] load vectors (defaults to the problem's f)
+    material : SIMP material (defaults to the problem's, else E(rho)=rho)
+    lane_chunk : densities a call at a time through the einsum form of
+        the operator; None (the default) runs the (density, load) pairs
+        through the GEMM form, as many at once as half the device's free
+        memory holds.  Both give the same energies.
+
+    Returns
+    -------
+    energies [B, L], iterations [B, L], converged [B, L] (a lane that did
+    not converge is flagged, and a warning names how many)
+    """
+    from .parallel.sweep import (SweepKernel, sweep_compliance,
+                                 sweep_compliance_pairs)
+
+    material = material or problem.material
+    mask = free_mask_from_bcs(problem.n_dofs, problem.bcs)
+    dtype = dtype or problem.dtype
+    if material is not None:
+        nu = material.nu
+    elif problem.lam is not None:
+        # nu from the assembled Lame parameters; the kernel shares one nu
+        # across elements, so a mixed-nu assembly is rejected
+        lam_e = np.broadcast_to(problem.lam, (problem.mesh.n_cells,))
+        mu_e = np.broadcast_to(problem.mu, (problem.mesh.n_cells,))
+        nus = lam_e / (2.0 * (lam_e + mu_e))
+        if np.ptp(nus) > 1e-12:
+            raise ValueError(
+                "evaluate_design_batch needs a single Poisson ratio; the "
+                "assembled material has per-element nu variation — pass "
+                "material= explicitly")
+        nu = float(nus[0])
+    else:
+        raise RuntimeError("assemble a material or pass material= before "
+                           "evaluate_design_batch")
+    dens = np.asarray(densities, np.float64)
+    esc = np.asarray(material.youngs_modulus(dens)
+                     if material is not None else dens)
+    loads = np.asarray(problem.f[None] if load_cases is None
+                       else load_cases, np.float64)
+    B, L = esc.shape[0], loads.shape[0]
+
+    if lane_chunk is None:
+        kernel = SweepKernel.build(problem.mesh, nu, mask, dtype=dtype,
+                                   full_ke=True, device=problem.device)
+        P = B * L
+        chunk = min(P, kernel.lanes_that_fit())
+        bi, lj = np.divmod(np.arange(P), L)
+        e_out, it_out, cv_out = (np.empty(P), np.empty(P, np.int64),
+                                 np.empty(P, bool))
+        for c0 in range(0, P, chunk):
+            sl = slice(c0, min(c0 + chunk, P))
+            e, it, cv = sweep_compliance_pairs(
+                kernel, esc[bi[sl]], loads[lj[sl]], tol=tol, maxiter=maxiter)
+            e_out[sl], it_out[sl], cv_out[sl] = (
+                e.cpu().numpy(), it.cpu().numpy(), cv.cpu().numpy())
+        energies, iters, conv = (e_out.reshape(B, L), it_out.reshape(B, L),
+                                 cv_out.reshape(B, L))
+    else:
+        kernel = SweepKernel.build(problem.mesh, nu, mask, dtype=dtype,
+                                   device=problem.device)
+        chunk = max(1, min(int(lane_chunk), B))
+        parts = [sweep_compliance(kernel, esc[c0:c0 + chunk], loads,
+                                  tol=tol, maxiter=maxiter)
+                 for c0 in range(0, B, chunk)]
+        energies, iters, conv = (
+            np.concatenate([p[i].cpu().numpy() for p in parts])
+            for i in range(3))
+    if not conv.all():
+        print_warning(
+            f"{int((~conv).sum())} of {conv.size} sweep lanes did not "
+            f"converge within {maxiter} iterations")
+    return energies, iters, conv

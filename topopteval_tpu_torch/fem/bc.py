@@ -1,10 +1,11 @@
 """Boundary topology + node selection + Dirichlet constraints.
 
 Counterpart of ``topopteval_tpu.fem.bc`` (reference: SelectNodesForBC.jl,
-FiniteElementAnalysis.jl:314-374).  Surface extraction takes the NumPy
-route: faces belonging to exactly one element are surface faces
-(SelectNodesForBC.jl:59-91), counted with ``np.unique``.  Dirichlet
-constraints become a free-DOF mask (see fem/operator.py).
+FiniteElementAnalysis.jl:314-374).  Surface extraction: faces belonging
+to exactly one element are surface faces (SelectNodesForBC.jl:59-91),
+counted by the host library's hash kernel (io/native.py) or, without it,
+with ``np.unique``.  Dirichlet constraints become a free-DOF mask (see
+fem/operator.py).
 """
 
 from __future__ import annotations
@@ -33,15 +34,19 @@ class SurfaceTopology:
 
 def extract_surface(mesh: Mesh) -> SurfaceTopology:
     """Faces appearing once across all cells are surface faces
-    (reference: SelectNodesForBC.jl:59-123)."""
+    (reference: SelectNodesForBC.jl:59-123).  The host library's hash
+    kernel and the NumPy fallback give the same sorted face indices."""
+    from ..io.native import extract_surface_faces_native
     faces = np.asarray(FACE_TABLES[mesh.element_type], dtype=np.int64)
     nf, fk = faces.shape
     conn = mesh.conn.astype(np.int64)
     flat = conn[:, faces].reshape(-1, fk)             # [C*nf, fk]
-    keys = np.sort(flat, axis=1)
-    _, inverse, counts = np.unique(keys, axis=0, return_inverse=True,
-                                   return_counts=True)
-    idx = np.flatnonzero(counts[inverse.reshape(-1)] == 1)
+    idx = extract_surface_faces_native(mesh.conn, faces)
+    if idx is None:
+        keys = np.sort(flat, axis=1)
+        _, inverse, counts = np.unique(keys, axis=0, return_inverse=True,
+                                       return_counts=True)
+        idx = np.flatnonzero(counts[inverse.reshape(-1)] == 1)
     face_cells = idx // nf
     face_local = idx % nf
     face_conn = flat[idx]

@@ -24,13 +24,15 @@ materials that vary inside a hex.
   values, and ``BellSystem.matvec64`` (the exact fp64 scipy twin kept at
   build time) certifies residuals for mixed-precision refinement.
 
-The build runs on the host in NumPy/scipy and uploads finished tensors.
-Not ported: the monolithic build the JAX package falls back to (a
-material with lam or mu <= 0, a skeleton over the byte budget, a coarse
-pattern that deviates from the skeleton); those raise
-``NotImplementedError`` naming ROADMAP Queue A item 6.  The JAX package's
-native host library (element gradients, block values, scalar RAP) is not
-used either: its NumPy/scipy fallbacks are this package's host build.
+The build runs on the host and uploads finished tensors.  Its hot loops
+(element gradients, the block values of a material, the scalar-P RAP on
+the frozen pattern) go through the port's host library
+(io/native.py, csrc/host/topopt_native.cpp) with flush-to-zero on, and
+fall back to NumPy/scipy without it.  A material with lam or mu <= 0, a
+skeleton over the byte budget, or a coarse pattern that leaves the
+skeleton's takes the monolithic build (:func:`_build_bell_multigrid_legacy`:
+element stiffness, global block triplets, scipy Galerkin RAP chain), as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..io.native import (blocks_from_g_native, bsr_rap_scalar_native,
+                         element_gradients_native, host_ftz,
+                         native_available)
 from ..mesh import Mesh, resolve_device
 from ..ops.bell import (BlockCSR, bell_matvec, csr_arrays, pad_rows,
                         sell_matvec)
@@ -60,10 +65,9 @@ _COARSEN = 2.0
 _NU = 2
 
 #: largest skeleton (bytes of its block work arrays) the skeleton build
-#: takes; the JAX package sends bigger meshes to its monolithic build
+#: takes; bigger meshes go to the monolithic build
+#: (``build_bell_multigrid(skel_max_bytes=...)`` overrides it per call)
 _SKEL_MAX_BYTES = 4.8e10
-_NOT_PORTED = ("the monolithic block-ELL build is not ported yet (ROADMAP "
-               "Queue A item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +380,123 @@ def _coarse_pinv_cm(K_c_dense: np.ndarray, mask_cur: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# Host assembly for the monolithic build: mesh -> global block triplets
+# ---------------------------------------------------------------------------
+
+
+def _element_geometry(mesh: Mesh, order: int, chunk: int):
+    """Yield (conn chunk, g [cc, q, k, 3], wdet [cc, q], c0) per chunk:
+    the same quadrature as the device kernels (tet4 takes its exact
+    one-point rule), an identity Jacobian for degenerate cells."""
+    from ..ops.elements import element_tables
+    _, dN, w = element_tables(mesh.element_type,
+                              1 if mesh.element_type == "tet4" else order)
+    dN = np.asarray(dN, np.float64)
+    w = np.asarray(w, np.float64)
+    conn = mesh.conn
+    coords = np.asarray(mesh.coords, np.float64)
+    for c0 in range(0, conn.shape[0], chunk):
+        cn = conn[c0: c0 + chunk]
+        J = np.einsum("cka,qkb->cqab", coords[cn], dN, optimize=True)
+        detJ = np.linalg.det(J)
+        invJ = np.linalg.inv(
+            np.where((detJ == 0)[..., None, None], np.eye(3), J))
+        g = np.einsum("qkb,cqba->cqka", dN, invJ, optimize=True)
+        yield cn, g, w[None, :] * detJ, c0
+
+
+def _host_ke_blocks(mesh: Mesh, lam_e: np.ndarray, mu_e: np.ndarray,
+                    order: int, chunk: int = 131072):
+    """Yield (conn chunk, Ke blocks [cc, k, k, 3, 3] float64) per chunk."""
+    eye = np.eye(3)
+    for cn, g, wdet, c0 in _element_geometry(mesh, order, chunk):
+        wl = wdet * lam_e[c0: c0 + chunk, None]
+        wm = wdet * mu_e[c0: c0 + chunk, None]
+        K1 = np.einsum("cq,cqia,cqjb->cijab", wl, g, g, optimize=True)
+        K2 = np.einsum("cq,cqib,cqja->cijab", wm, g, g, optimize=True)
+        dots = np.einsum("cq,cqid,cqjd->cij", wm, g, g, optimize=True)
+        yield cn, K1 + K2 + dots[..., None, None] * eye[None, None, None]
+
+
+def _host_ke_blocks_unit(mesh: Mesh, order: int, chunk: int = 131072):
+    """Yield (conn chunk, kl, km) with ``Ke = lam_e * kl + mu_e * km``:
+    the Lame parameters enter the element stiffness linearly (reference
+    constitutive law FiniteElementAnalysis.jl:126-129)."""
+    eye = np.eye(3)
+    for cn, g, wdet, _ in _element_geometry(mesh, order, chunk):
+        kl = np.einsum("cq,cqia,cqjb->cijab", wdet, g, g, optimize=True)
+        km = np.einsum("cq,cqib,cqja->cijab", wdet, g, g, optimize=True)
+        dots = np.einsum("cq,cqid,cqjd->cij", wdet, g, g, optimize=True)
+        yield cn, kl, km + dots[..., None, None] * eye[None, None, None]
+
+
+def assemble_bsr_triplets(mesh: Mesh, lam_e: np.ndarray, mu_e: np.ndarray,
+                          order: int = 2):
+    """Global stiffness as deduplicated block triplets (rows [nnzb],
+    cols [nnzb], blocks [nnzb, 3, 3] float64) sorted by (row, col): the
+    reference's CSC assembly (FiniteElementAnalysis.jl:204-250) at block
+    granularity."""
+    k = mesh.conn.shape[1]
+    rows_l, cols_l, data_l = [], [], []
+    for cn, ke in _host_ke_blocks(mesh, lam_e, mu_e, order):
+        cc = cn.shape[0]
+        r = np.repeat(cn, k, axis=1).reshape(-1)          # [cc*k*k]
+        c = np.tile(cn, (1, k)).reshape(-1)
+        # reduced within the chunk first, to keep the global sort small
+        r, c, d = _dedup_triplets(r, c, ke.reshape(cc * k * k, 3, 3))
+        rows_l.append(r)
+        cols_l.append(c)
+        data_l.append(d)
+    return _dedup_triplets(np.concatenate(rows_l), np.concatenate(cols_l),
+                           np.concatenate(data_l))
+
+
+def _dedup_triplets(rows, cols, data):
+    order = np.lexsort((cols, rows))
+    rows, cols, data = rows[order], cols[order], data[order]
+    key_change = np.empty(rows.shape[0], dtype=bool)
+    key_change[0] = True
+    np.not_equal(rows[1:], rows[:-1], out=key_change[1:])
+    key_change[1:] |= cols[1:] != cols[:-1]
+    starts = np.flatnonzero(key_change)
+    out = np.add.reduceat(data.reshape(data.shape[0], -1), starts, axis=0)
+    return rows[starts], cols[starts], out.reshape(-1, 3, 3)
+
+
+def _triplets_to_scipy_bsr(rows, cols, blocks, n_nodes: int):
+    """Sorted block triplets → scipy BSR."""
+    import scipy.sparse as sp
+    indptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n_nodes), out=indptr[1:])
+    return sp.bsr_matrix((blocks, cols.astype(np.int64), indptr),
+                         shape=(3 * n_nodes, 3 * n_nodes))
+
+
+def _scipy_to_triplets(A):
+    """scipy sparse → sorted block triplets (rows, cols, blocks)."""
+    Ab = A.tobsr(blocksize=(3, 3))
+    Ab.sort_indices()
+    rows = np.repeat(np.arange(Ab.shape[0] // 3), np.diff(Ab.indptr))
+    return rows, Ab.indices.astype(np.int64), Ab.data
+
+
+def _permute_triplets(rows, cols, blocks, perm):
+    """Triplets under a node permutation (perm: new → old), re-sorted."""
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    r2, c2 = inv[rows], inv[cols]
+    order = np.lexsort((c2, r2))
+    return r2[order], c2[order], blocks[order]
+
+
+def _diag_blocks(rows, cols, blocks, n_nodes: int) -> np.ndarray:
+    out = np.zeros((n_nodes, 3, 3))
+    sel = rows == cols
+    out[rows[sel]] = blocks[sel]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Hierarchy from host arrays (build, disk cache and carried-over state all
 # end here)
 # ---------------------------------------------------------------------------
@@ -505,7 +626,8 @@ def build_bell_skeleton(mesh: Mesh,
                         free_mask: Optional[np.ndarray] = None,
                         order: int = 2,
                         max_coarse_dofs: int = 4000) -> dict:
-    """Density-independent hierarchy skeleton for a solid mesh.
+    """Density-independent hierarchy skeleton for a solid mesh (built
+    under :func:`..io.native.host_ftz`).
 
     Contains the RCM permutation; the element gradients and the sorted
     (element, local ij) contribution list that re-assemble the block
@@ -515,6 +637,12 @@ def build_bell_skeleton(mesh: Mesh,
     matrices for the numeric Galerkin RAP.  A flat numpy dict, .npz-able
     via :func:`save_skeleton`.
     """
+    with host_ftz():
+        return _build_bell_skeleton(mesh, free_mask, order, max_coarse_dofs)
+
+
+def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
+                         max_coarse_dofs: int) -> dict:
     import scipy.sparse as sp
 
     from ..ops.elements import element_tables
@@ -600,7 +728,9 @@ def build_bell_skeleton(mesh: Mesh,
     nqp = dN_t.shape[0]
     g_el = np.empty((C, nqp, k, 3))
     wdet_el = np.empty((C, nqp))
-    _host_gradients(mesh, dN_t, w_t, g_el, wdet_el)
+    if not element_gradients_native(mesh.coords, mesh.conn, dN_t, w_t,
+                                    g_el, wdet_el):
+        _host_gradients(mesh, dN_t, w_t, g_el, wdet_el)
     t0 = tick("unit_assembly", t0)
 
     sel = rows_d == cols_d
@@ -755,7 +885,8 @@ def _host_gradients(mesh: Mesh, dN_t: np.ndarray, w_t: np.ndarray,
                     g_out: np.ndarray, wdet_out: np.ndarray,
                     chunk: int = 131072) -> None:
     """Physical gradients g [C, q, k, 3] and weights w*det [C, q] (an
-    identity Jacobian and zero weight for degenerate cells)."""
+    identity Jacobian and zero weight for degenerate cells): the NumPy
+    fallback of ``topopt_element_gradients``."""
     conn = np.asarray(mesh.conn)
     coords = np.asarray(mesh.coords, np.float64)
     C = conn.shape[0]
@@ -778,13 +909,16 @@ def _skel_blocks(skel: dict, lam_e: np.ndarray,
     """Deduplicated global block values [nnzb, 9] for a material: the
     whole re-assembly of a density swap (reference semantics:
     assemble_stiffness_matrix_simp!, FiniteElementAnalysis.jl:654-707,
-    without materializing K)."""
+    without materializing K), by the host library or in NumPy."""
     g = skel["g"]
     wdet = skel["wdet"]
     elem = skel["elem_sorted"]
     ij = skel["ij_sorted"]
     indptr = skel["grp_indptr"]
     k = int(skel["k_nodes"])
+    out = blocks_from_g_native(g, wdet, elem, ij, indptr, lam_e, mu_e)
+    if out is not None:
+        return out
     nnzb = indptr.shape[0] - 1
     out = np.empty((nnzb, 9))
     eye = np.eye(3).reshape(9)
@@ -822,9 +956,17 @@ def build_bell_values(skel: dict, lam, mu, dtype=torch.float32,
     """Hierarchy values for a material on a prebuilt skeleton: the block
     values re-assembled from the gradient factorization, the numeric
     Galerkin RAP chain on the frozen patterns, block-Jacobi inverses,
-    Chebyshev bounds and the coarsest pseudo-inverse.  Returns
-    ``(system, mg, info)``; ``info["host_arrays"]`` holds the host arrays
-    :func:`save_hierarchy` writes."""
+    Chebyshev bounds and the coarsest pseudo-inverse, under
+    :func:`..io.native.host_ftz`.  Returns ``(system, mg, info)``;
+    ``info["host_arrays"]`` holds the host arrays :func:`save_hierarchy`
+    writes.  Raises :class:`SkeletonMismatch` if a coarse pattern leaves
+    the skeleton's."""
+    with host_ftz():
+        return _build_bell_values(skel, lam, mu, dtype, device)
+
+
+def _build_bell_values(skel: dict, lam, mu, dtype, device
+                       ) -> Tuple[BellSystem, BellMG, dict]:
     import scipy.sparse as sp
 
     t_all = time.perf_counter()
@@ -888,22 +1030,35 @@ def build_bell_values(skel: dict, lam, mu, dtype=torch.float32,
         n_next = int(skel[f"C{li}_n"])
         nf_p, nc_p = pad_rows(n_cur), pad_rows(n_next)
         cols_c = skel[f"C{li}_cols_d"]
-        P_dof = sp.bsr_matrix(
-            (skel[f"P{li}_data"], skel[f"P{li}_indices"],
-             skel[f"P{li}_indptr"]),
-            shape=(3 * n_cur, 3 * n_next), copy=False)
-        PT_dof = sp.bsr_matrix(
-            (skel[f"PT{li}_data"], skel[f"PT{li}_indices"],
-             skel[f"PT{li}_indptr"]),
-            shape=(3 * n_next, 3 * n_cur), copy=False)
-        A_next = PT_dof @ (A_cur @ P_dof)
-        A_next.sort_indices()
-        if (A_next.indices.shape[0] != cols_c.shape[0]
-                or not np.array_equal(A_next.indices, cols_c)):
-            raise SkeletonMismatch(
-                f"level {li + 1} coarse pattern deviates from skeleton "
-                f"({A_next.indices.shape[0]} vs {cols_c.shape[0]} blocks)")
-        blocks_c = np.ascontiguousarray(A_next.data)      # [nnzb_c, 3, 3]
+        try:
+            # the library's scalar-P product straight onto the frozen
+            # pattern (None without the library)
+            blocks_c = bsr_rap_scalar_native(
+                A_cur.indptr, A_cur.indices, A_cur.data.reshape(-1, 9),
+                skel[f"Pn{li}_indptr"], skel[f"Pn{li}_indices"],
+                skel[f"Pn{li}_data"], skel[f"PTn{li}_indptr"],
+                skel[f"PTn{li}_indices"], skel[f"PTn{li}_data"],
+                skel[f"C{li}_bsr_indptr"], cols_c, n_cur, n_next)
+        except ValueError as e:
+            raise SkeletonMismatch(f"level {li + 1}: {e}") from e
+        if blocks_c is None:                      # scipy blockwise products
+            P_dof = sp.bsr_matrix(
+                (skel[f"P{li}_data"], skel[f"P{li}_indices"],
+                 skel[f"P{li}_indptr"]),
+                shape=(3 * n_cur, 3 * n_next), copy=False)
+            PT_dof = sp.bsr_matrix(
+                (skel[f"PT{li}_data"], skel[f"PT{li}_indices"],
+                 skel[f"PT{li}_indptr"]),
+                shape=(3 * n_next, 3 * n_cur), copy=False)
+            A_next = PT_dof @ (A_cur @ P_dof)
+            A_next.sort_indices()
+            if (A_next.indices.shape[0] != cols_c.shape[0]
+                    or not np.array_equal(A_next.indices, cols_c)):
+                raise SkeletonMismatch(
+                    f"level {li + 1} coarse pattern deviates from skeleton "
+                    f"({A_next.indices.shape[0]} vs {cols_c.shape[0]} "
+                    "blocks)")
+            blocks_c = np.ascontiguousarray(A_next.data)  # [nnzb_c, 3, 3]
         mask_next = skel[f"C{li}_mask"]
 
         host[f"L{li}_p_indptr"] = _pad_indptr(skel[f"Pn{li}_indptr"], nf_p)
@@ -943,6 +1098,8 @@ def build_bell_values(skel: dict, lam, mu, dtype=torch.float32,
         torch.cuda.synchronize(system.device)
     t0 = tick("upload", t0)
     info["host_arrays"] = host
+    info["route"] = "skeleton"
+    info["host_library"] = native_available()
     info["value_seconds"] = round(time.perf_counter() - t_all, 3)
     info["skeleton_seconds"] = float(skel.get("skeleton_seconds", 0.0))
     info["skeleton_phases"] = dict(skel.get("_phases", {}))
@@ -978,6 +1135,249 @@ def _device_bytes(system: BellSystem, mg: BellMG) -> int:
     return int(sum(seen.values()))
 
 
+# ---------------------------------------------------------------------------
+# Monolithic build: the fallback for lam or mu <= 0, a skeleton over its
+# byte budget and a skeleton mismatch
+# ---------------------------------------------------------------------------
+
+
+def _build_bell_multigrid_legacy(
+        mesh: Mesh, lam, mu,
+        free_mask: Optional[np.ndarray] = None,
+        dtype=torch.float32,
+        max_coarse_dofs: int = 4000,
+        order: int = 2,
+        device="cuda",
+) -> Tuple[BellSystem, BellMG, dict]:
+    """The block-ELL hierarchy in one host pass (under
+    :func:`..io.native.host_ftz`): element stiffness → global block
+    triplets → RCM order → voxel-embedded trilinear P → scipy Galerkin RAP
+    chain → block-Jacobi inverses and Chebyshev bounds → the coarsest
+    eigencutoff pseudo-inverse.  No pattern is frozen, so it holds for
+    any material, lam or mu <= 0 included (the JAX package's
+    ``_build_bell_multigrid_legacy``, same arithmetic, into the port's
+    block-CSR layout).  ``info["phases"]`` holds the build seconds by
+    phase, ``info["fine_transfer"]`` the fine-level P triplets."""
+    with host_ftz():
+        return _build_legacy(mesh, lam, mu, free_mask, dtype,
+                             max_coarse_dofs, order, device)
+
+
+def _build_legacy(mesh, lam, mu, free_mask, dtype, max_coarse_dofs, order,
+                  device):
+    import scipy.sparse as sp
+
+    from .multigrid import (build_transfer_tables, build_voxel_transfer,
+                            propagate_fixed)
+
+    t_all = time.perf_counter()
+    info = {"phases": {}}
+
+    def tick(label, t0):
+        info["phases"][label] = round(time.perf_counter() - t0, 3)
+        return time.perf_counter()
+
+    np_dt = _np_dtype(dtype)
+    C = mesh.n_cells
+    N = mesh.n_nodes
+    lam_e = np.broadcast_to(np.asarray(lam, np.float64), (C,))
+    mu_e = np.broadcast_to(np.asarray(mu, np.float64), (C,))
+    if free_mask is None:
+        free_mask = np.ones(mesh.n_dofs)
+    mask_il = np.asarray(free_mask, np.float64).reshape(-1)
+
+    # --- fine assembly + RCM -------------------------------------------------
+    t0 = time.perf_counter()
+    rows, cols, blocks = assemble_bsr_triplets(mesh, lam_e, mu_e, order)
+    t0 = tick("assemble_triplets", t0)
+    perm = rcm_order(rows, cols, N)
+    rows, cols, blocks = _permute_triplets(rows, cols, blocks, perm)
+    mask_p = mask_il.reshape(N, 3)[perm].reshape(-1)
+    coords_p = np.asarray(mesh.coords, np.float64)[perm]
+    t0 = tick("rcm_permute", t0)
+
+    # the system operator keeps the float64 values as an fp32 hi/lo pair;
+    # the V-cycle's copy of level 0 takes the hi plane only
+    n_rows_p = pad_rows(N)
+    A_bsr = _triplets_to_scipy_bsr(rows, cols, blocks, N)
+    vals = blocks.reshape(-1, 9)
+    host = {"perm": perm.astype(np.int64), "n_nodes": N, "nu": _NU,
+            "smoother": "chebyshev",
+            "L0_indptr": _pad_indptr(A_bsr.indptr, n_rows_p),
+            "L0_cols": cols.astype(np.int32),
+            "L0_mask": _mask_cm_flat(mask_p, n_rows_p, dtype),
+            "hb_indptr": A_bsr.indptr, "hb_indices": A_bsr.indices,
+            "hb_data": A_bsr.data.reshape(-1, 9)}
+    if np_dt == np.float32:
+        hi = vals.astype(np.float32)
+        host["L0_vals"] = hi
+        host["fine_vals_lo"] = (vals - hi).astype(np.float32)
+    else:
+        host["L0_vals"] = vals
+    t0 = tick("fine_pack", t0)
+    diag = _diag_blocks(rows, cols, blocks, N)
+    binv = _block_jacobi_inv(diag, mask_p.reshape(N, 3))
+    host["L0_binv9"] = _binv9_cm(binv, n_rows_p, dtype)
+    t0 = tick("fine_binv", t0)
+    host["L0_lam_max"] = _power_lambda_max(A_bsr, binv, mask_p)
+    t0 = tick("fine_lam_max", t0)
+
+    # --- voxel lattice dims (the skeleton build's policy) --------------------
+    lo, hi_box = mesh.bounding_box()
+    extent = np.maximum(np.asarray(hi_box) - np.asarray(lo), 1e-300)
+    h = _COARSEN * (float(np.prod(extent)) / max(N, 1)) ** (1.0 / 3.0)
+    dims0 = np.maximum(np.round(extent / h).astype(int), 1)
+
+    def rounded(L):
+        f = 2 ** (L - 1)
+        dr = ((dims0 + f - 1) // f) * f
+        return dr, 3 * int(np.prod(dr // f + 1))
+
+    L = 1
+    while True:
+        dims_r, ndc = rounded(L)
+        if ndc <= max_coarse_dofs or L >= 12:
+            break
+        L += 1
+    if ndc > max_coarse_dofs:
+        raise ValueError(
+            f"coarsest voxel level has {ndc} dofs > max_coarse_dofs="
+            f"{max_coarse_dofs}")
+    vx, vy, vz = (int(x) for x in dims_r)
+    host["n_levels"] = L
+
+    # --- level chain: P (triplets) -> RAP -> reorder -> block-CSR ------------
+    A_cur = A_bsr.tocsr()
+    mask_cur = mask_p
+    n_cur = N
+    level_nodes = [N]
+    lattice_dims = (vx, vy, vz)
+    rap_sub = dict.fromkeys(("tables", "rap_scipy", "reorder", "pack",
+                             "binv_lam_max"), 0.0)
+    ts = time.perf_counter()
+
+    def sub(label):
+        nonlocal ts
+        now = time.perf_counter()
+        rap_sub[label] += now - ts
+        ts = now
+
+    for li in range(L):
+        ts = time.perf_counter()
+        if li == 0:
+            parents, weights, _ = build_voxel_transfer(
+                coords_p, lo, hi_box, lattice_dims)
+        else:
+            cnx, cny, cnz = lattice_dims
+            parents, weights, _ = build_transfer_tables(cnx, cny, cnz)
+            lattice_dims = (cnx // 2, cny // 2, cnz // 2)
+            # rows of these tables are in the previous level's lattice
+            # order; remap them to its final order
+            parents = parents[prev_lattice_perm]
+            weights = weights[prev_lattice_perm]
+        cnx2, cny2, cnz2 = lattice_dims if li else (vx, vy, vz)
+        n_next = (cnx2 + 1) * (cny2 + 1) * (cnz2 + 1)
+
+        live = (weights > 0) & (parents < n_next)
+        p_rows = np.repeat(np.arange(parents.shape[0]),
+                           parents.shape[1]).reshape(parents.shape)[live]
+        p_cols = parents[live].astype(np.int64)
+        p_w = weights[live]
+        fixed_c = propagate_fixed(parents, weights,
+                                  mask_cur.reshape(-1, 3) == 0, n_next)
+        mask_next_lat = np.where(fixed_c, 0.0, 1.0).reshape(-1)
+        sub("tables")
+
+        # Galerkin RAP on the host (scipy, scalar CSR)
+        P_node = sp.coo_matrix((p_w, (p_rows, p_cols)),
+                               shape=(n_cur, n_next)).tocsr()
+        P_dof = sp.kron(P_node, sp.eye(3), format="csr")
+        A_next = (P_dof.T @ A_cur @ P_dof).tocsr()
+        sub("rap_scipy")
+        if A_next.nnz:
+            # drop entries below 1e-14 of the largest diagonal
+            tol = 1e-14 * np.abs(A_next.diagonal()).max()
+            A_next.data[np.abs(A_next.data) < tol] = 0.0
+            A_next.eliminate_zeros()
+        # empty-diagonal dofs (voxel corners supporting no fine node) fixed
+        d = A_next.diagonal()
+        mask_next_lat[d <= 0] = 0.0
+
+        # coarse nodes numbered by their first fine child, so both
+        # transfers gather from nearby rows (this order fixes the V-cycle)
+        r_n, c_n, b_n = _scipy_to_triplets(A_next)
+        keys = np.full(n_next, np.iinfo(np.int64).max)
+        np.minimum.at(keys, p_cols, p_rows)
+        perm_c = np.argsort(keys, kind="stable")
+        inv_c = np.empty_like(perm_c)
+        inv_c[perm_c] = np.arange(n_next)
+        r_n, c_n, b_n = _permute_triplets(r_n, c_n, b_n, perm_c)
+        mask_next = mask_next_lat.reshape(n_next, 3)[perm_c].reshape(-1)
+        p_cols = inv_c[p_cols]
+        prev_lattice_perm = perm_c
+        sub("reorder")
+
+        if li == 0:
+            # raw fine-level P triplets (rows: fine RCM positions, cols:
+            # level-1 positions), for a sharded V-cycle's own transfer
+            info["fine_transfer"] = {
+                "rows": p_rows.astype(np.int32),
+                "cols": p_cols.astype(np.int32),
+                "w": p_w.astype(np.float64), "n_coarse": int(n_next)}
+        nf_p, nc_p = pad_rows(n_cur), pad_rows(n_next)
+        P_fin = sp.coo_matrix((p_w, (p_rows, p_cols)),
+                              shape=(n_cur, n_next)).tocsr()
+        P_fin.sort_indices()
+        PT_fin = P_fin.T.tocsr()
+        PT_fin.sort_indices()
+        host[f"L{li}_p_indptr"] = _pad_indptr(P_fin.indptr, nf_p)
+        host[f"L{li}_p_cols"] = P_fin.indices.astype(np.int32)
+        host[f"L{li}_p_w"] = P_fin.data.astype(np_dt)
+        host[f"L{li}_r_indptr"] = _pad_indptr(PT_fin.indptr, nc_p)
+        host[f"L{li}_r_cols"] = PT_fin.indices.astype(np.int32)
+        host[f"L{li}_r_w"] = PT_fin.data.astype(np_dt)
+        A_next_p = _triplets_to_scipy_bsr(r_n, c_n, b_n, n_next)
+        sub("pack")
+
+        diag_c = _diag_blocks(r_n, c_n, b_n, n_next)
+        binv_c = _block_jacobi_inv(diag_c, mask_next.reshape(n_next, 3))
+        if li + 1 < L:              # a smoothed level of the V-cycle
+            i = li + 1
+            host[f"L{i}_indptr"] = _pad_indptr(A_next_p.indptr, nc_p)
+            host[f"L{i}_cols"] = c_n.astype(np.int32)
+            host[f"L{i}_vals"] = b_n.reshape(-1, 9).astype(np_dt)
+            host[f"L{i}_mask"] = _mask_cm_flat(mask_next, nc_p, dtype)
+            host[f"L{i}_binv9"] = _binv9_cm(binv_c, nc_p, dtype)
+            # Chebyshev bounds below the coarsest level only
+            host[f"L{i}_lam_max"] = _power_lambda_max(A_next_p, binv_c,
+                                                      mask_next)
+        A_cur = A_next_p.tocsr()
+        mask_cur = mask_next
+        n_cur = n_next
+        level_nodes.append(n_next)
+        sub("binv_lam_max")
+    t0 = tick("rap_chain", t0)
+    info["phases"]["rap_chain_sub"] = {k: round(v, 3)
+                                       for k, v in rap_sub.items()}
+
+    host["coarse_inv"] = _coarse_pinv_cm(A_cur.toarray(), mask_cur, n_cur,
+                                         pad_rows(n_cur), dtype)
+    t0 = tick("coarse_pinv", t0)
+
+    system, mg = _from_host(host, dtype, device)
+    if system.device.type == "cuda":
+        torch.cuda.synchronize(system.device)
+    t0 = tick("upload", t0)
+    info.update({
+        "host_arrays": host, "route": "monolithic",
+        "host_library": native_available(), "skeleton_cached": False,
+        "value_seconds": round(time.perf_counter() - t_all, 3),
+        "skeleton_seconds": 0.0, "n_levels": L + 1,
+        "level_nodes": level_nodes, "fine_blocks": int(cols.shape[0]),
+        "device_bytes": _device_bytes(system, mg)})
+    return system, mg, info
+
+
 def build_bell_multigrid(
         mesh: Mesh, lam, mu,
         free_mask: Optional[np.ndarray] = None,
@@ -987,63 +1387,72 @@ def build_bell_multigrid(
         skeleton_path: Optional[str] = None,
         skeleton_cache: Optional[dict] = None,
         device="cuda",
+        skel_max_bytes: Optional[float] = None,
 ) -> Tuple[BellSystem, BellMG, dict]:
     """The explicit BELL hierarchy for an arbitrary solid mesh: a skeleton
     (the in-process ``skeleton_cache``, the ``skeleton_path`` .npz, or a
-    fresh build) and the value pass for this
-    material.  ``info["skeleton_cached"]`` says whether the skeleton was
-    reused.  Materials with lam or mu <= 0 and meshes over the skeleton
-    byte budget need the monolithic build, which raises
-    ``NotImplementedError`` here (ROADMAP Queue A item 6)."""
+    fresh build) and the value pass for this material.
+    ``info["skeleton_cached"]`` says whether the skeleton was reused.
+
+    A material with lam or mu <= 0 (nu = 0 gives lam = 0; auxetic nu < 0
+    a negative lam), where the frozen pattern's positivity argument
+    fails, and a mesh whose skeleton would exceed ``skel_max_bytes``
+    (default ``_SKEL_MAX_BYTES``) take the monolithic build; so does a
+    value pass that leaves the skeleton's pattern, with a warning.
+    ``info["route"]`` names the build taken."""
     from ..utils.terminal import log, print_warning
 
     C, k = mesh.conn.shape
     lam_e = np.broadcast_to(np.asarray(lam, np.float64), (C,))
     mu_e = np.broadcast_to(np.asarray(mu, np.float64), (C,))
     skel_bytes = C * k * k * 9 * 8 * 2.5
-    if lam_e.min() <= 0 or mu_e.min() <= 0:
-        raise NotImplementedError(
-            f"multigrid for a material with lam or mu <= 0: {_NOT_PORTED}")
-    if skel_bytes > _SKEL_MAX_BYTES:
-        raise NotImplementedError(
-            f"multigrid for a skeleton of {skel_bytes:.3g} bytes (budget "
-            f"{_SKEL_MAX_BYTES:.3g}): {_NOT_PORTED}")
-    skeleton = None
-    ram_key = None
-    if skeleton_cache is not None:
-        # in-process RAM cache (one entry): the density-swap workflow
-        ram_key = skeleton_cache_key(mesh, free_mask, order, max_coarse_dofs)
-        skeleton = skeleton_cache.get(ram_key)
-    skeleton_cached = skeleton is not None
-    if skeleton is None and skeleton_path is not None \
-            and os.path.exists(skeleton_path):
-        try:
-            t_l = time.perf_counter()
-            skeleton = load_skeleton(skeleton_path)
-            skeleton_cached = True
-            log(f"hierarchy skeleton loaded from cache "
-                f"({time.perf_counter() - t_l:.1f}s): {skeleton_path}")
-        except (OSError, ValueError, KeyError) as e:   # stale/corrupt
-            print_warning(f"skeleton cache load failed ({e}); rebuilding")
-    if skeleton is None:
-        skeleton = build_bell_skeleton(mesh, free_mask=free_mask,
-                                       order=order,
-                                       max_coarse_dofs=max_coarse_dofs)
-        if skeleton_path is not None:
-            try:
-                save_skeleton(skeleton_path, skeleton)
-            except OSError as e:
-                print_warning(f"skeleton cache save failed: {e}")
-    if ram_key is not None and ram_key not in skeleton_cache:
-        skeleton_cache.clear()          # hold at most ONE skeleton
-        skeleton_cache[ram_key] = skeleton
+    budget = _SKEL_MAX_BYTES if skel_max_bytes is None else skel_max_bytes
+
+    def monolithic():
+        return _build_bell_multigrid_legacy(
+            mesh, lam, mu, free_mask=free_mask, dtype=dtype,
+            max_coarse_dofs=max_coarse_dofs, order=order, device=device)
+
+    if lam_e.min() <= 0 or mu_e.min() <= 0 or skel_bytes > budget:
+        return monolithic()
     try:
+        skeleton = None
+        ram_key = None
+        if skeleton_cache is not None:
+            # in-process RAM cache (one entry): the density-swap workflow
+            ram_key = skeleton_cache_key(mesh, free_mask, order,
+                                         max_coarse_dofs)
+            skeleton = skeleton_cache.get(ram_key)
+        skeleton_cached = skeleton is not None
+        if skeleton is None and skeleton_path is not None \
+                and os.path.exists(skeleton_path):
+            try:
+                t_l = time.perf_counter()
+                skeleton = load_skeleton(skeleton_path)
+                skeleton_cached = True
+                log(f"hierarchy skeleton loaded from cache "
+                    f"({time.perf_counter() - t_l:.1f}s): {skeleton_path}")
+            except (OSError, ValueError, KeyError) as e:   # stale/corrupt
+                print_warning(f"skeleton cache load failed ({e}); "
+                              "rebuilding")
+        if skeleton is None:
+            skeleton = build_bell_skeleton(mesh, free_mask=free_mask,
+                                           order=order,
+                                           max_coarse_dofs=max_coarse_dofs)
+            if skeleton_path is not None:
+                try:
+                    save_skeleton(skeleton_path, skeleton)
+                except OSError as e:
+                    print_warning(f"skeleton cache save failed: {e}")
+        if ram_key is not None and ram_key not in skeleton_cache:
+            skeleton_cache.clear()          # hold at most ONE skeleton
+            skeleton_cache[ram_key] = skeleton
         system, mg, info = build_bell_values(skeleton, lam_e, mu_e,
                                              dtype=dtype, device=device)
     except SkeletonMismatch as e:
-        raise NotImplementedError(
-            f"multigrid: the value pass left the skeleton's pattern ({e}); "
-            f"{_NOT_PORTED}") from e
+        print_warning(f"skeleton value pass failed ({e}); using the "
+                      "monolithic build")
+        return monolithic()
     info["skeleton_cached"] = skeleton_cached
     return system, mg, info
 
