@@ -146,7 +146,24 @@ few) and each failing the script on a failed check:
    in float32 (every lane converged, lanes per second, iterations, device
    kernels per iteration), three sampled lanes within 1e-3 of the port's
    float64 solve of that lane, and the SIMP Hex8 fixture's batch energy
-   in float64 within 1e-6 of ``solve_system_simp``.
+   in float64 within 1e-6 of ``solve_system_simp``;
+16. multi-device solves with four shards on the card (``devices=[cuda:0]
+   * 4``, one process): (16a) the halo-exchange operator at scale 16 in
+   float64 and float32 against the single-device operator (matvec,
+   diagonal, node blocks) and B1 on every shard against its plain
+   version, with the collectives' bytes and B1's launches per matvec;
+   (16b) ``solve_system(devices=)`` with multigrid in float64 on the
+   scale-8 beam from .vtu: phase 8's 18 iterations and the oracle to
+   1e-8, B4/B5 in the coarse chain; (16c) the same in float32 on phase
+   8's scale-16 problem (its hierarchy reused) through the refinement,
+   with its build split and one MG-PCG iteration's wall and device ms;
+   (16d) the sharded block-Jacobi CG at scale 8 in float64 against one
+   device's count, in float32 at 1e-10 through the refinement, and a
+   warm start; (16e) ``evaluate_design_batch(devices=[cuda:0] * 2)``,
+   the einsum and pairs routes, against one device on the same parts and
+   on all at once; (16f) ``dryrun.dryrun_multichip(4)`` on the card;
+   and, where the machine has several cards, the halo matvec across
+   them.
 
 The line before last is one JSON object with a record per kernel; the
 last line is the run's contract line.  Imports nothing of JAX.
@@ -1946,6 +1963,350 @@ def sweep_phase(env):
         "simp_fixture_rel_err": rel}), flush=True)
 
 
+def sharded_phase(env):
+    """16: multi-device solves with ``env.shards`` (4 shards on the card):
+    the halo operator at scale 16 against the single-device operator and
+    B1 on every shard against its plain version (16a); the sharded MG-PCG
+    in float64 on the scale-8 beam from .vtu, which must take phase 8's
+    count (16b), and in float32 under the refinement on phase 8's
+    scale-16 problem, its hierarchy reused (16c); the sharded block-Jacobi
+    CG at scale 8 in float64, float32 refined and warm-started (16d); the
+    data-parallel sweep over two shards (16e); the dry run (16f).  Prints
+    every number beside ``env.smi``, the card's name and power limit, and
+    returns a summary."""
+    import numpy as np
+    import torch
+
+    import topopteval_tpu_torch as tt
+    from topopteval_tpu_torch import api as tt_api
+    from topopteval_tpu_torch import dryrun
+    from topopteval_tpu_torch.fem.operator import StiffnessOperator
+    from topopteval_tpu_torch.fem.solvers import cg
+    from topopteval_tpu_torch.ops import bell as bo
+    from topopteval_tpu_torch.ops import element_kernels as ek
+    from topopteval_tpu_torch.parallel import collectives
+    from topopteval_tpu_torch.parallel import sweep as sweep_mod
+    from topopteval_tpu_torch.parallel.halo import HaloShardedOperator
+    from topopteval_tpu_torch.parallel.halo_mg import build_halo_multigrid
+    from topopteval_tpu_torch.parallel.sharding import build_device_mesh
+
+    check, dev, smi = env.check, env.dev, env.smi
+    f32, f64 = torch.float32, torch.float64
+    shards = env.shards
+    S = len(shards)
+    dm = build_device_mesh(devices=shards)
+    summary = {"card": smi, "shards": S}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def sharded(x0=None):
+        return lambda p, c: tt.solve_system(p, c, x0=x0, devices=shards)
+
+    def rel_max(a, ref):
+        return float(np.abs(a - ref).max() / np.abs(ref).max())
+
+    # -- 16a. the halo operator at scale 16, float64 and float32 ------------
+    p16 = env.p16b
+    mesh16 = p16.mesh
+    mask16 = tt.free_mask_from_bcs(p16.n_dofs, p16.bcs)
+    rng = np.random.default_rng(16)
+    u = rng.standard_normal(mesh16.n_dofs)
+    for dt in (f64, f32):
+        dn = str(dt).split(".")[1]
+        tol = TOLERANCE[dn]
+        t = time.perf_counter()
+        hop = HaloShardedOperator.build(mesh16, p16.lam, p16.mu, dm,
+                                        free_mask=mask16, dtype=dt)
+        sync()
+        build_s = time.perf_counter() - t
+        op = StiffnessOperator.build(
+            mesh16.device(dt, dev), p16.lam, p16.mu,
+            free_mask=torch.as_tensor(mask16, dtype=dt, device=dev))
+        u_l = hop.to_local(u)
+        u_d = torch.as_tensor(u, dtype=dt, device=dev)
+        ek.reset_launch_counts()
+        collectives.reset_moved()
+        f_h = hop.matvec(u_l)
+        sync()
+        b1 = ek.LAUNCHES["tet4_apply"]
+        moved = dict(collectives.MOVED)
+        err = rel_max(hop.from_local(f_h),
+                      op.matvec(u_d).double().cpu().numpy())
+        err_d = rel_max(hop.from_local(hop.diagonal()),
+                        op.diagonal().double().cpu().numpy())
+        blocks = torch.cat(hop.node_blocks_raw()).double().cpu().numpy()
+        err_b = rel_max(blocks[hop.plan.perm],
+                        op.node_blocks_raw().double().cpu().numpy())
+        # B1 on every shard's own inputs against its plain version
+        err_b1 = 0.0
+        for sh in hop.shards:
+            x = torch.as_tensor(rng.standard_normal(3 * sh.coords.shape[0]),
+                                dtype=dt, device=dev)
+            out = ek.tet4_apply(sh.coords, sh.conn, x, sh.lam, sh.mu)
+            ref = ek.tet4_apply_reference(sh.coords, sh.conn, x, sh.lam,
+                                          sh.mu)
+            err_b1 = max(err_b1, float((out - ref).abs().max()
+                                       / ref.abs().max()))
+        item = torch.tensor([], dtype=dt).element_size()
+        full = 3 * mesh16.n_nodes * item
+        ms_halo = env.time_ms(lambda: hop.matvec(u_l), graph=True)
+        ms_one = env.time_ms(lambda: op.matvec(u_d), graph=True)
+        ms_halo_eager = env.time_ms(lambda: hop.matvec(u_l))
+        ms_one_eager = env.time_ms(lambda: op.matvec(u_d))
+        print(f"[sharded] 16a halo operator {dn} scale 16 ({mesh16.n_cells} "
+              f"tets, {S} shards on {shards[0]}): build_s={build_s:.3f} "
+              f"n_boundary={hop.plan.n_boundary} ns_max={hop.ns_max} "
+              f"nbs_max={hop.nbs_max} B1_launches_per_matvec={b1} "
+              f"all_gather_bytes={moved['all_gather'] * item} "
+              f"psum_bytes={moved['psum'] * item} full_vector_bytes={full} "
+              f"(ratio {moved['all_gather'] * item / full:.4f}); against the "
+              f"single-device operator: matvec {err:.3e} diagonal "
+              f"{err_d:.3e} node_blocks {err_b:.3e}; per-shard B1 against "
+              f"its plain version {err_b1:.3e} (tol {tol:.0e}); matvec "
+              f"device_ms halo={ms_halo:.4f} single={ms_one:.4f}, eager "
+              f"halo={ms_halo_eager:.4f} single={ms_one_eager:.4f} | {smi}",
+              flush=True)
+        check(b1 == S, f"16a: {b1} B1 launches in one {S}-shard matvec")
+        check(moved["all_gather"] == moved["psum"]
+              == S * hop.nbs_max * 3, f"16a: collectives moved {moved}")
+        check(max(err, err_d, err_b, err_b1) <= tol,
+              f"16a {dn}: the halo operator is off by "
+              f"{max(err, err_d, err_b, err_b1):.3e}")
+        summary[f"halo_{dn}"] = {
+            "n_boundary": hop.plan.n_boundary, "ns_max": hop.ns_max,
+            "nbs_max": hop.nbs_max, "collective_bytes": moved["psum"] * item,
+            "full_vector_bytes": full, "build_s": build_s,
+            "matvec_ms": ms_halo, "single_matvec_ms": ms_one,
+            "matvec_eager_ms": ms_halo_eager,
+            "single_matvec_eager_ms": ms_one_eager, "max_rel_err": max(
+                err, err_d, err_b, err_b1)}
+        del hop, op, u_l, u_d, f_h
+        torch.cuda.empty_cache()
+
+    # -- 16b. sharded MG-PCG, float64, the scale-8 beam from .vtu -----------
+    mesh8 = env.vtu_round_trip(env.beam, env.tmp, "beam_scale_8_shards.vtu")
+    p8 = env.setup(mesh8, f64)
+    oracle8 = env.oracles["tet_beam_scale_8"]
+    r, secs, launches = env.solve(p8, env.MG, "tet4_apply",
+                                  method="cg(multigrid,sharded)",
+                                  fn=sharded())
+    b4, b5 = bo.LAUNCHES["bell_matvec"], bo.LAUNCHES["sell_matvec"]
+    rel = env.report("sharded_mg8_fp64", r, secs, launches, oracle8)
+    want = env.bell8.iterations
+    print(f"[sharded] 16b iterations={r.iterations} single_device={want} "
+          f"B4_launches={b4} B5_launches={b5} timings="
+          f"{json.dumps({k: round(v, 3) for k, v in r.timings.items()})} "
+          f"| {smi}", flush=True)
+    check(b4 > 0 and b5 > 0, "16b: the coarse chain did not run B4 and B5")
+    if r.iterations != want:
+        hist = dataclasses.replace(env.MG, history=True)
+        one = tt.solve_system(env.setup(mesh8, f64), hist)
+        many = sharded()(env.setup(mesh8, f64), hist)
+        print(f"[sharded] 16b residual histories: single {one.history!r} "
+              f"sharded {many.history!r}", flush=True)
+    check(r.iterations == want,
+          f"16b: {r.iterations} sharded iterations, {want} on one device")
+    check(r.converged and rel <= 1e-8, f"16b: rel_err {rel:.3e}")
+    summary["mg8_fp64"] = {"iterations": r.iterations, "rel_err": rel,
+                           "solve_s": secs}
+
+    # -- 16c. sharded MG-PCG, float32 refined, scale 16 ----------------------
+    p16.f = np.zeros(p16.n_dofs)
+    tt.apply_force(p16, tt.nodes_at_plane(mesh16, 0, 60.0), [0.0, 0.0, -1.0])
+    r, secs, launches = env.solve(p16, env.MG, "tet4_apply",
+                                  method="cg(multigrid,sharded)",
+                                  fn=sharded())
+    rel = env.report("sharded_mg16_fp32", r, secs, launches,
+                     env.oracles["tet_beam_scale_16"])
+    check(r.converged and rel <= 1e-8, f"16c: rel_err {rel:.3e}")
+    # one MG-PCG iteration of the sharded solve: a 20-iteration call less
+    # a 10-iteration one, so that the set-up cancels
+    hier = tt_api._bell_hierarchy(p16, mask16)
+    hop, hmg, _ = build_halo_multigrid(mesh16, p16.lam, p16.mu, dm,
+                                       free_mask=mask16, dtype=f32,
+                                       hierarchy=hier)
+    rhs = hop.to_local(p16.f * mask16) * hop.free_mask
+
+    def run(n):
+        cg(hop, rhs, M=hmg, tol=0.0, maxiter=n)
+
+    def wall(n):
+        sync()
+        t = time.perf_counter()
+        run(n)
+        sync()
+        return time.perf_counter() - t
+
+    run(2)
+    wall_ms = 1e3 * (wall(20) - wall(10)) / 10
+    d20, top, k20 = env.profile(lambda: run(20), 1)
+    d10, _, k10 = env.profile(lambda: run(10), 1)
+    device_ms, per_iter = (d20 - d10) / 10, (k20 - k10) / 10
+    busy = f"{device_ms / wall_ms:.3f}" if device_ms > 0 else "not measured"
+    timings = r.timings
+    print(f"[sharded] 16c scale 16 float32: solve_s={secs:.3f} iterations="
+          f"{r.iterations} passes={r.refinement_passes} build_operator_s="
+          f"{timings['build_operator']:.3f} (hierarchy "
+          f"{timings['build_operator/hierarchy']:.3f}, halo "
+          f"{timings['build_operator/halo']:.3f}) "
+          f"refine_host_matvec_s="
+          f"{timings.get('refine_host_matvec_seconds', 0.0):.3f}; one "
+          f"MG-PCG iteration: wall_ms={wall_ms:.3f} device_ms="
+          f"{device_ms:.3f} device_busy_share={busy} "
+          f"device_kernels_per_iteration={per_iter:.1f}; top of the "
+          f"20-iteration call (ms): "
+          + ", ".join(f"{k[:40]}={v:.3f}" for k, v in top[:6])
+          + f" | {smi}", flush=True)
+    summary["mg16_fp32"] = {
+        "iterations": r.iterations, "rel_err": rel, "solve_s": secs,
+        "build_hierarchy_s": timings["build_operator/hierarchy"],
+        "build_halo_s": timings["build_operator/halo"],
+        "wall_ms_per_iteration": wall_ms,
+        "device_ms_per_iteration": device_ms,
+        "kernels_per_iteration": per_iter}
+    del hop, hmg, rhs, hier
+    torch.cuda.empty_cache()
+
+    # -- 16d. sharded block-Jacobi CG, scale 8 ---------------------------------
+    cg8 = dataclasses.replace(env.CG, tolerance=1e-8)
+    one, _, _ = env.solve(p8, cg8, "tet4_apply", method="cg")
+    cold, secs, launches = env.solve(p8, cg8, "tet4_apply",
+                                     method="cg(sharded)", fn=sharded())
+    rel = env.report("sharded_bj8_fp64", cold, secs, launches, oracle8)
+    print(f"[sharded] 16d block-Jacobi float64 tol 1e-8: sharded "
+          f"{cold.iterations} iterations, single device {one.iterations} "
+          f"(gap {cold.iterations - one.iterations}) | {smi}", flush=True)
+    check(cold.converged and rel <= 1e-6, f"16d fp64: rel_err {rel:.3e}")
+    p8f = env.setup(mesh8, f32)
+    r, secs, launches = env.solve(p8f, env.CG, "tet4_apply",
+                                  method="cg(sharded)", fn=sharded())
+    rel32 = env.report("sharded_bj8_fp32_refined", r, secs, launches,
+                       oracle8)
+    check(r.converged and rel32 <= 1e-8, f"16d fp32: rel_err {rel32:.3e}")
+    warm, secs, _ = env.solve(p8, cg8, "tet4_apply", method="cg(sharded)",
+                              fn=sharded(x0=cold.u))
+    bound = max(2, cold.iterations // 10)
+    print(f"[sharded] 16d warm start from the cold answer: "
+          f"{warm.iterations} iterations (at most {bound}) solve_s="
+          f"{secs:.3f} | {smi}", flush=True)
+    check(warm.converged and warm.iterations <= bound,
+          f"16d: the warm start took {warm.iterations} iterations")
+    summary["bj8"] = {"fp64_iterations": cold.iterations,
+                      "single_iterations": one.iterations,
+                      "fp64_rel_err": rel, "fp32_rel_err": rel32,
+                      "warm_iterations": warm.iterations}
+
+    # -- 16e. the sweep over a 2-shard data axis --------------------------------
+    # A lane's rounding depends on how many lanes run beside it
+    # (parallel/sweep.py).  Each route's sharded run, 8 densities a shard,
+    # is held to one device running the same parts (1e-12, equal counts)
+    # and to one device's run of all 16 at once (1e-12); the counts that
+    # move against the latter must be the ones that one device's same
+    # parts move too: the witness that the width, not the split, moves
+    # them.
+    mesh4 = tt.generate_grid_tet(50, 16, 4, (0, 0, 0), BEAM_BOX)
+    p4 = env.setup(mesh4, f64)
+    B = 16
+    dens = np.random.default_rng(4).uniform(0.7, 1.0, (B, mesh4.n_cells))
+    loads = np.zeros((2, p4.n_dofs))
+    loads[0] = p4.f
+    loads[1, 1::3] = p4.f[2::3]                 # the tip load along y
+    kw = dict(tol=1e-10, maxiter=20000, dtype=f64)
+    real_split = sweep_mod.shard_sweep_inputs
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    def sharded(**extra):
+        calls = []
+
+        def spy(dmesh, e, f):
+            out = real_split(dmesh, e, f)
+            calls.append([part.shape[0] for part in out[0]])
+            return out
+
+        sweep_mod.shard_sweep_inputs = spy
+        try:
+            out, sec = timed(lambda: tt.evaluate_design_batch(
+                p4, dens, loads, devices=[dev, dev], **extra, **kw))
+        finally:
+            sweep_mod.shard_sweep_inputs = real_split
+        return out, sec, calls
+
+    def halves(**extra):
+        parts = [tt.evaluate_design_batch(p4, d, loads, **extra, **kw)
+                 for d in (dens[:B // 2], dens[B // 2:])]
+        return tuple(np.concatenate([q[i] for q in parts])
+                     for i in range(3))
+
+    legs = {}
+    for route, extra in (("einsum", {"lane_chunk": B}), ("pairs", {})):
+        (e1, it1, cv1), one_s = timed(lambda: tt.evaluate_design_batch(
+            p4, dens, loads, **extra, **kw))
+        e1c, it1c, _ = (tt.evaluate_design_batch(
+            p4, dens, loads, lane_chunk=B // 2, **kw)
+            if route == "einsum" else halves())
+        (e2, it2, cv2), two_s, calls = sharded(**extra)
+        rel = float(np.abs(e2 - e1).max() / np.abs(e1).max())
+        rel_c = float(np.abs(e2 - e1c).max() / np.abs(e1c).max())
+        moved, moved_c = it1 != it2, it1 != it1c
+        print(f"[sharded] 16e sweep {route} route, {B}x2 lanes float64 on "
+              f"{mesh4.n_cells} tets: one device, all at once {one_s:.3f} "
+              f"s; two data shards {two_s:.3f} s (split {calls}); against "
+              f"one device on the same parts: max rel diff {rel_c:.3e}, "
+              f"equal iterations {bool(np.array_equal(it1c, it2))}; "
+              f"against all at once: max rel diff {rel:.3e} (tol 1e-12), "
+              f"{int(moved.sum())} of {it1.size} counts moved by at most "
+              f"{int(np.abs(it1 - it2).max())} (median "
+              f"{float(np.median(it1))}); one device on the same parts "
+              f"moves {int(moved_c.sum())}, the same ones "
+              f"{bool(np.array_equal(moved, moved_c))} | {smi}", flush=True)
+        check(calls == [[B // 2, B // 2]] and cv1.all() and cv2.all(),
+              f"16e {route}: the sweep did not split over the data axis "
+              f"({calls}), or a lane did not converge")
+        check(rel_c <= 1e-12 and np.array_equal(it1c, it2),
+              f"16e {route}: sharded sweep off one device's same parts by "
+              f"{rel_c:.3e}, or its counts differ")
+        check(rel <= 1e-12,
+              f"16e {route}: sharded sweep off all at once by {rel:.3e}")
+        check(np.array_equal(moved, moved_c),
+              f"16e {route}: the split moves other counts than the width")
+        legs[route] = {"rel_diff": rel, "rel_diff_same_parts": rel_c,
+                       "counts_moved": int(moved.sum()),
+                       "counts_moved_same_parts": int(moved_c.sum()),
+                       "one_s": one_s, "two_s": two_s}
+    summary["sweep"] = legs
+
+    # -- 16f. the dry run with shards on the card -------------------------------
+    out = dryrun.dryrun_multichip(S, dev)
+    print(f"[sharded] 16f dryrun_multichip({S}) on {dev}: "
+          f"{json.dumps(out)} | {smi}", flush=True)
+    summary["dryrun"] = out
+
+    # an extra leg across real devices, where the machine has several
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(min(n_cards, S))]
+        hop = HaloShardedOperator.build(mesh8, p8.lam, p8.mu,
+                                        build_device_mesh(devices=cards),
+                                        free_mask=tt.free_mask_from_bcs(
+                                            p8.n_dofs, p8.bcs), dtype=f64)
+        u8 = rng.standard_normal(mesh8.n_dofs)
+        ref = p8.build_operator().matvec(torch.as_tensor(
+            u8, dtype=f64, device=dev)).cpu().numpy()
+        err = rel_max(hop.from_local(hop.matvec(hop.to_local(u8))), ref)
+        print(f"[sharded] halo matvec over {len(cards)} cards against one: "
+              f"{err:.3e} (tol 1e-12) | {smi}", flush=True)
+        check(err <= 1e-12, f"halo matvec across cards off by {err:.3e}")
+    return summary
+
+
 def dname_of(dtype):
     return str(dtype).split(".")[1]
 
@@ -3445,12 +3806,26 @@ def main() -> int:
             MG=MG, p16b=p16b, info16=info16, bell8=bell8, beam=beam,
             oracles=oracles, mesh8=vtu_round_trip(beam, tmp,
                                                   "beam_scale_8.vtu")))
-    del p16b
     torch.cuda.empty_cache()
     sweep_phase(types.SimpleNamespace(
         dev=dev, check=check, profile=profile, CG=CG, simp_path=simp_path,
         dims=(80, 32, 8), B=64))
     print(f"[phase15] seconds={time.perf_counter() - t15:.1f}", flush=True)
+
+    # -- 16. multi-device solves: four shards on the card ------------------
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    os.environ["TOPOPT_MG_CACHE_DIR"] = "off"
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded = sharded_phase(types.SimpleNamespace(
+            dev=dev, check=check, solve=solve, setup=setup, report=report,
+            profile=profile, time_ms=time_ms, MG=MG, CG=CG, p16b=p16b,
+            bell8=bell8, beam=beam, oracles=oracles, smi=smi, tmp=tmp,
+            vtu_round_trip=vtu_round_trip,
+            shards=[torch.device("cuda", 0)] * 4))
+    print("[sharded] " + json.dumps(sharded), flush=True)
+    del p16b
+    print(f"[phase16] seconds={time.perf_counter() - t16:.1f}", flush=True)
 
     print(f"[device] {smi}")
     print(json.dumps({"kernels": records}))

@@ -5,8 +5,8 @@ solve takes about a minute of tracing on the CPU; the fixture's hierarchy
 is held to the JAX package's array for array in tests/test_torch_bell.py),
 float32 through the refinement route, the hierarchy and skeleton disk
 caches, the no-cache setting, the in-process skeleton cache of a SIMP
-density swap, the monolithic build at Poisson's ratio 0 and the route
-that is not ported (``devices=``).  The box case through
+density swap, the monolithic build at Poisson's ratio 0, also sharded
+(``devices=``).  The box case through
 both packages is in tests/test_torch_bell_solve.py.
 
 Tolerances are stated where they are used.
@@ -200,18 +200,21 @@ def test_density_swap_reuses_the_skeleton(monkeypatch):
 
 
 def test_unported_block_ell_routes_raise(monkeypatch):
-    # the block-ELL route that raised before its monolithic build was
-    # ported (lam = 0, Poisson's ratio 0) solves now; multi-device solves
-    # are the one route left that raises
+    # the block-ELL routes that raised before they were ported: lam = 0
+    # (Poisson's ratio 0, the monolithic build), then multi-device solves,
+    # whose V-cycle takes its fine transfer from that build
     monkeypatch.setenv("TOPOPT_MG_CACHE_DIR", "off")
     problem = _box(torch.float64, 4, 2, 2)
     problem.lam = np.zeros_like(problem.lam)      # nu = 0: lam = 0
     result = tt.solve_system(problem, tt.SolverConfig(**MG_KW))
     assert problem._mg_build_info["route"] == "monolithic"
+    assert problem._mg_build_info["fine_transfer"] is not None
     assert result.converged
     assert _rel(result.energy, _direct_energy(problem)) <= 1e-8
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        tt.solve_system(problem, tt.SolverConfig(**MG_KW), devices=2)
+    sharded = tt.solve_system(problem, tt.SolverConfig(**MG_KW), devices=2)
+    assert sharded.method == "cg(multigrid,sharded)" and sharded.converged
+    assert sharded.iterations == result.iterations
+    assert _rel(sharded.energy, result.energy) <= 1e-8
 
 
 def test_galerkin_route_solves_box(monkeypatch):

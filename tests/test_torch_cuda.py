@@ -1373,3 +1373,55 @@ def test_library_hierarchy_equals_the_numpy_route(cuda, tmp_path):
     # two solves stopped at 1e-10 of |f| on hierarchies equal to rounding:
     # their energies agree to the solves' accuracy (CPU: 6.5e-11)
     assert abs(e1 - e0) <= 1e-9 * abs(e0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("element_type", ["tet4", "hex8"])
+def test_halo_matvec_on_card_shards_matches_cpu(cuda, element_type, dtype):
+    """The halo-exchange operator with 4 shards on one card against the
+    same operator on 4 CPU shards (the plain versions); each shard's
+    element apply launches its kernel once a matvec."""
+    from topopteval_tpu_torch.parallel.halo import HaloShardedOperator
+    from topopteval_tpu_torch.parallel.sharding import build_device_mesh
+
+    gen = tt.generate_grid_tet if element_type == "tet4" else \
+        tt.generate_grid_hex
+    mesh = gen(16, 5, 3, (0, 0, 0), (16.0, 5.0, 3.0))
+    lam, mu = tt.lame_parameters(1.0, 0.3)
+    mask = tt.free_mask_from_bcs(mesh.n_dofs, [tt.DirichletBC.fixed(
+        tt.nodes_at_plane(mesh, 0, 0.0))])
+    u = np.random.default_rng(0).standard_normal(mesh.n_dofs)
+    out = {}
+    for dev in ("cpu", cuda):
+        hop = HaloShardedOperator.build(
+            mesh, lam, mu, build_device_mesh(devices=[dev] * 4),
+            free_mask=mask, dtype=dtype)
+        name = f"{element_type}_apply"
+        before = ek.LAUNCHES[name]
+        out[str(dev)] = hop.from_local(hop.matvec(hop.to_local(u)))
+        launched = ek.LAUNCHES[name] - before
+        assert launched == (4 if dev == cuda else 0)
+    ref = out["cpu"]
+    err = np.abs(out[str(cuda)] - ref).max()
+    assert err <= TOL[dtype] * np.abs(ref).max()
+
+
+def test_halo_shard_b1_matches_its_plain_version(cuda):
+    """B1 on each shard's local node table and gather index (the inputs
+    the halo matvec gives it) against its plain version."""
+    from topopteval_tpu_torch.parallel.halo import HaloShardedOperator
+    from topopteval_tpu_torch.parallel.sharding import build_device_mesh
+
+    mesh = tt.generate_grid_tet(24, 6, 4, (0, 0, 0), (24.0, 6.0, 4.0))
+    lam, mu = tt.lame_parameters(1.0, 0.3)
+    hop = HaloShardedOperator.build(
+        mesh, lam, mu, build_device_mesh(devices=[cuda] * 4),
+        dtype=torch.float64)
+    rng = np.random.default_rng(1)
+    for sh in hop.shards:
+        u = torch.as_tensor(rng.standard_normal(3 * sh.coords.shape[0]),
+                            device=sh.coords.device)
+        out = ek.tet4_apply(sh.coords, sh.conn, u, sh.lam, sh.mu)
+        ref = ek.tet4_apply_reference(sh.coords, sh.conn, u, sh.lam, sh.mu)
+        assert float((out - ref).abs().max()) <= TOL[torch.float64] * float(
+            ref.abs().max())

@@ -8,10 +8,10 @@ CPU (float64 unless stated).
   float32 through the float64-certified refinement route.
 - The SIMP fixture (Hex8, 1e-8 density contrast) with the same CG in
   float64, against the port's own float64 host direct oracle.
-- The routes: auto → direct below 50k DOFs, NotImplementedError for the
-  route not ported yet (``devices=``), multigrid at Poisson's ratio 0
-  (the monolithic block-ELL build) against the direct solve, no silent
-  CPU fallback for ``device="cuda"``.
+- The routes: auto → direct below 50k DOFs, multigrid at Poisson's
+  ratio 0 (the monolithic block-ELL build) against the direct solve,
+  also sharded over two CPU shards (``devices=2``) with block-Jacobi and
+  multigrid, no silent CPU fallback for ``device="cuda"``.
 - Export and result round-trips, and a subprocess check that the port
   loads neither ``jax`` nor ``topopteval_tpu``.
 
@@ -195,21 +195,18 @@ def test_cantilever_auto_selects_direct_below_50k(beam_tet_path):
     assert _rel(result.energy, 621.8542083316273) <= 1e-8
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    # multi-device solves (ROADMAP Queue A item 13) are the one route not
-    # ported; the block-ELL monolithic build that a material with lam = 0
-    # (Poisson's ratio 0) needs is, and solves the same state below
+@pytest.mark.parametrize("kwargs,method", [
+    # multi-device solves (ROADMAP Queue A item 13), once the last route
+    # that raised: the sharded multigrid on a material with lam = 0
+    # (Poisson's ratio 0), whose hierarchy is the monolithic block-ELL
+    # build's, and the sharded block-Jacobi CG
     (dict(method="cg", preconditioner="multigrid", verbose=False),
-     "item 13"),
-])
-def test_unported_routes_raise(beam2, kwargs, item):
+     "cg(multigrid,sharded)"),
+], ids=["kwargs0-item 13"])
+def test_unported_routes_raise(beam2, kwargs, method):
     problem = tt.problem_from_numpy(_state(beam2), device="cpu",
                                     dtype=torch.float64)
     problem.lam = np.zeros_like(problem.lam)
-    with pytest.raises(NotImplementedError, match=item):
-        tt.solve_system(problem, tt.SolverConfig(**kwargs), devices=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tt.solve_system(problem, CG, devices=2)
     # the scale-2 state carries no ``structured_info``: multigrid takes
     # the block-ELL route, which sends lam = 0 to its monolithic build
     result = tt.solve_system(problem, tt.SolverConfig(
@@ -219,6 +216,16 @@ def test_unported_routes_raise(beam2, kwargs, item):
                                                       verbose=False))
     assert result.converged
     assert _rel(result.energy, direct.energy) <= 1e-8
+    # two shards on the CPU: the sharded V-cycle rebuilds its transfer from
+    # the monolithic build's fine transfer
+    sharded = tt.solve_system(problem, tt.SolverConfig(
+        **kwargs, tolerance=1e-10), devices=2)
+    assert sharded.method == method and sharded.converged
+    assert sharded.iterations == result.iterations
+    assert _rel(sharded.energy, result.energy) <= 1e-8
+    plain = tt.solve_system(problem, CG, devices=2)
+    assert plain.method == "cg(sharded)" and plain.converged
+    assert _rel(plain.energy, direct.energy) <= 1e-8
 
 
 def test_cuda_device_is_never_replaced_by_cpu(beam2):

@@ -19,8 +19,8 @@ fem/robust.py (``minres``, ``gmres``, ``bicgstab``, and ``cg`` with
 inside float64 host-residual refinement, and the backward-error gate
 with its direct fallback.  ``solve_system_adaptive`` and
 ``solve_system_robust`` are the reference's size-switched and
-diagnosed entry points.  ``devices=`` (multi-device solves) raises
-``NotImplementedError`` naming its ROADMAP item, Queue A item 13.
+diagnosed entry points.  ``devices=`` shards the CG solve over several
+devices (parallel/halo.py, parallel/halo_mg.py), driven by one process.
 ``evaluate_design_batch`` evaluates a density batch times load cases by
 batched block-Jacobi PCG lanes (parallel/sweep.py).
 """
@@ -28,6 +28,7 @@ batched block-Jacobi PCG lanes (parallel/sweep.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import List, Optional, Sequence
@@ -487,6 +488,12 @@ def _get_multigrid(problem: Problem):
     return op, mg
 
 
+def _norm(v) -> float:
+    """Euclidean norm of a tensor or a sharded slab vector."""
+    return (float(torch.linalg.vector_norm(v))
+            if isinstance(v, torch.Tensor) else v.norm())
+
+
 def _backward_error(op, f_dev: torch.Tensor, u: torch.Tensor):
     """Normwise backward error eta = ||f-Au|| / (||A||·||u|| + ||f||) with
     a fresh matvec and an 8-step power estimate of ||A||_2.
@@ -494,16 +501,16 @@ def _backward_error(op, f_dev: torch.Tensor, u: torch.Tensor):
     Returns (eta, fnorm_fraction) where fnorm_fraction =
     ||f|| / (||A||·||u|| + ||f||), which folds the requested Krylov
     tolerance into the acceptance threshold."""
-    true_r = float(torch.linalg.vector_norm(f_dev - op.matvec(u)))
-    unorm = float(torch.linalg.vector_norm(u))
-    fnorm = float(torch.linalg.vector_norm(f_dev))
+    true_r = _norm(f_dev - op.matvec(u))
+    unorm = _norm(u)
+    fnorm = _norm(f_dev)
     if unorm == 0:
         return (0.0 if true_r == 0 else 1.0), 1.0
     v = u / unorm
     lam_max = 1.0
     for _ in range(8):
         w = op.matvec(v)
-        lam_max = float(torch.linalg.vector_norm(w))
+        lam_max = _norm(w)
         v = w / max(lam_max, 1e-300)
     denom = lam_max * unorm + fnorm
     return true_r / denom, fnorm / denom
@@ -606,20 +613,172 @@ def _build_preconditioner(op, config: SolverConfig):
     raise ValueError(f"unknown preconditioner {name!r}")
 
 
+def _bell_hierarchy(problem: Problem, mask):
+    """The block-ELL hierarchy of the problem: the in-process one of its
+    last single-device multigrid solve where that is a block-ELL build of
+    this material, else through :func:`_get_bell_multigrid` (its caches)."""
+    from .fem.bell import BellSystem
+    cached = problem._mg_cache
+    if (cached is not None and cached[0] == _material_fingerprint(problem)
+            and isinstance(cached[1], BellSystem)
+            and cached[1].fine_transfer is not None):
+        return cached[1], cached[2], problem._mg_build_info
+    return _get_bell_multigrid(problem, mask)
+
+
+class _Relayout:
+    """A block-ELL system's exact float64 host matvec in the public
+    interleaved layout (the refinement's residual oracle)."""
+
+    def __init__(self, system):
+        self.system = system
+
+    def matvec64(self, x64: np.ndarray) -> np.ndarray:
+        s = self.system
+        return s.to_il(s.matvec64(s.to_cm(x64)))
+
+
+def _device_mesh(problem: Problem, devices, data_parallel: int = 1):
+    """``devices`` (an int, a list of devices or a ``DeviceMesh``) as a
+    ``parallel.DeviceMesh``: an int is that many visible cards for a
+    problem on the card, that many shards on the CPU for one on the CPU."""
+    from .parallel.sharding import DeviceMesh, build_device_mesh
+
+    if isinstance(devices, DeviceMesh):
+        return devices
+    if isinstance(devices, int):
+        if problem.device.type == "cuda":
+            return build_device_mesh(devices, data_parallel=data_parallel)
+        devices = [problem.device] * devices
+    return build_device_mesh(devices=list(devices),
+                             data_parallel=data_parallel)
+
+
+def _solve_system_sharded(problem: Problem, config: SolverConfig, devices,
+                          timer: PhaseTimer,
+                          x0: Optional[np.ndarray] = None) -> SolveResult:
+    """Multi-device PCG: DOF vectors are node-partitioned slabs over the
+    ``elem`` axis, the operator is the halo-exchange sharded matvec
+    (parallel/halo.py) and the multigrid preconditioner runs its fine
+    level sharded with replicated coarse levels (parallel/halo_mg.py).
+    One process drives every shard.  float32 solves that need it run
+    inside the float64-certified refinement of the single-device routes."""
+    from .parallel.halo import HaloShardedOperator
+    from .parallel.halo_mg import build_halo_multigrid
+
+    if config.method not in ("cg", "auto"):
+        raise ValueError(
+            f"sharded solve supports method='cg' (got {config.method!r})")
+    dev_mesh = _device_mesh(problem, devices)
+
+    n = problem.n_dofs
+    dtype = problem.dtype
+    mask = free_mask_from_bcs(n, problem.bcs)
+    use_mg = config.preconditioner == "multigrid"
+    system = None
+    with timer.phase("build_operator"):
+        if use_mg:
+            with timer.phase("hierarchy"):
+                hierarchy = _bell_hierarchy(problem, mask)
+            with timer.phase("halo"):
+                hop, M, system = build_halo_multigrid(
+                    problem.mesh, problem.lam, problem.mu, dev_mesh,
+                    free_mask=mask, dtype=dtype, order=problem.quad_order,
+                    hierarchy=hierarchy)
+        else:
+            hop = HaloShardedOperator.build(
+                problem.mesh, problem.lam, problem.mu, dev_mesh,
+                free_mask=mask, dtype=dtype, order=problem.quad_order)
+            M = hop.block_jacobi()
+
+    f64 = np.asarray(problem.f, np.float64)[:n] * mask
+    x0_64 = None if x0 is None else np.asarray(x0, np.float64)[:n] * mask
+    log(f"Solving linear system (sharded over "
+        f"{dev_mesh.shape['elem']} devices)...")
+    t0 = time.perf_counter()
+    history = None
+    passes = 0
+    if dtype == torch.float32 and (use_mg or config.tolerance < 1e-6):
+        # float32 sharded PCG inner solves inside the float64-certified
+        # refinement: the multigrid route's residuals from the block-ELL
+        # system's host twin (as on one device), the others from the exact
+        # host twin of the operator
+        refine = _Relayout(system) if use_mg else _HostRefineSystem(problem)
+
+        def _inner(rhs, left, tol_inner):
+            r = cg(hop, hop.to_local(rhs.numpy()) * hop.free_mask, M=M,
+                   tol=tol_inner, maxiter=left,
+                   record_history=config.history)
+            return torch.from_numpy(hop.from_local(r.x)), r.niter, r.history
+
+        u64, niter, rnorm, conv, history, passes = _refined_generic(
+            refine, _inner, f64, config.tolerance, config.max_iterations,
+            torch.device("cpu"), x0_64=x0_64,
+            record_history=config.history, dtype=dtype)
+        _record_refine(timer, system if use_mg else refine)
+    else:
+        f_slab = hop.to_local(f64) * hop.free_mask
+        x0_slab = (None if x0_64 is None
+                   else hop.to_local(x0_64) * hop.free_mask)
+        res = cg(hop, f_slab, x0=x0_slab, M=M, tol=config.tolerance,
+                 maxiter=config.max_iterations,
+                 record_history=config.history)
+        niter, rnorm, conv = res.niter, res.residual_norm, res.converged
+        history = res.history
+        if conv:
+            # the backward-error gate of the single-device routes
+            eta, ffrac = _backward_error(hop, f_slab, res.x)
+            eps_dt = float(torch.finfo(dtype).eps)
+            if eta > 100.0 * eps_dt + 100.0 * config.tolerance * ffrac:
+                print_warning(f"sharded solution FAILED backward-error "
+                              f"verification (eta={eta:.2e})")
+                conv = False
+        u64 = hop.from_local(res.x)
+    solve_time = time.perf_counter() - t0
+    timer.records["solve"] = PhaseRecord("solve", solve_time)
+    energy = 0.5 * float(u64 @ f64)
+    method = "cg(multigrid,sharded)" if use_mg else "cg(sharded)"
+    if config.verbose:
+        from .fem.robust import print_convergence_report
+        print_convergence_report(config, method, niter, rnorm, conv,
+                                 history)
+    elif not conv:
+        print_warning(
+            f"Sharded solver did not converge after {niter} iterations "
+            f"(residual {rnorm:.3e}, target {config.tolerance:.1e})")
+    u = torch.as_tensor(u64, dtype=dtype, device=problem.device)
+    return _finish_result(problem, u, energy, method, niter, rnorm, conv,
+                          solve_time, history, timer, u64=u64,
+                          refinement_passes=passes)
+
+
+def _record_refine(timer: PhaseTimer, system) -> None:
+    """The refinement's host seconds (its twin's build and matvecs)."""
+    for name in ("build_seconds", "matvec_seconds"):
+        timer.records[f"refine_host_{name}"] = PhaseRecord(
+            f"refine_host_{name}", getattr(system, name))
+
+
 def solve_system(problem: Problem,
                  config: Optional[SolverConfig] = None,
                  x0: Optional[np.ndarray] = None,
                  devices=None) -> SolveResult:
     """Solve K u = f with the accumulated constraints, then recover energy
     and stresses (reference: FiniteElementAnalysis.jl:538-561, 831-862).
-    ``x0`` warm-starts the Krylov iteration."""
+    ``x0`` warm-starts the Krylov iteration.
+
+    ``devices`` shards the solve: an int shard count (the visible cards,
+    or that many shards on the CPU for a problem there), a list of devices
+    (a repeated device holds several shards) or a
+    :class:`.parallel.sharding.DeviceMesh`.  DOF vectors are
+    node-partitioned slabs, the operator the halo-exchange sharded matvec
+    and the multigrid V-cycle runs its fine level sharded with replicated
+    coarse levels; one process drives every shard."""
     timer = PhaseTimer()
     config = config or _default_config()
-    method = config.method
     if devices is not None:
-        raise NotImplementedError(
-            "multi-device solves are not ported yet (ROADMAP Queue A "
-            "item 13)")
+        return _solve_system_sharded(problem, config, devices, timer, x0=x0)
+    method = config.method
     if method == "auto":
         method = ("direct" if problem.n_dofs < ADAPTIVE_DOF_THRESHOLD
                   else "cg")
@@ -661,11 +820,6 @@ def solve_system(problem: Problem,
         u_np = direct_solve(K, np.asarray(problem.f)[:n] * mask_np)
         return torch.as_tensor(u_np, dtype=dtype, device=device)
 
-    def _record_refine(system):
-        for name in ("build_seconds", "matvec_seconds"):
-            timer.records[f"refine_host_{name}"] = PhaseRecord(
-                f"refine_host_{name}", getattr(system, name))
-
     if method == "direct":
         u = _host_direct()
         niter, rnorm, conv = 1, 0.0, True
@@ -698,7 +852,7 @@ def solve_system(problem: Problem,
                 record_history=config.history, dtype=dtype)
             u = torch.as_tensor(u64, dtype=dtype, device=device)
             energy64 = 0.5 * float(u64 @ f64)
-            _record_refine(system)
+            _record_refine(timer, system)
         else:
             x0_dev = None
             if x0 is not None:
@@ -747,7 +901,7 @@ def solve_system(problem: Problem,
                 u = torch.as_tensor(u64, dtype=dtype, device=device)
                 energy64 = 0.5 * float(u64 @ f64)
                 method = (meths[-1] if meths else method) + "+refine"
-                _record_refine(system)
+                _record_refine(timer, system)
             else:
                 u, niter, rnorm, conv, history, method = \
                     solve_with_krylov(op, f_dev, method, config)
@@ -945,7 +1099,8 @@ def evaluate_design_batch(problem: Problem, densities: np.ndarray,
                           load_cases: Optional[np.ndarray] = None,
                           material: Optional[SIMPMaterial] = None,
                           tol: float = 1e-6, maxiter: int = 5000,
-                          dtype=None, lane_chunk: Optional[int] = None):
+                          dtype=None, lane_chunk: Optional[int] = None,
+                          devices=None):
     """Compliance energies for a density batch × load cases on the
     problem's device, every (density, load) pair one block-Jacobi PCG lane
     sharing the mesh's element geometry (parallel/sweep.py).
@@ -959,14 +1114,24 @@ def evaluate_design_batch(problem: Problem, densities: np.ndarray,
         the operator; None (the default) runs the (density, load) pairs
         through the GEMM form, as many at once as half the device's free
         memory holds.  Both give the same energies.
+    devices : None (the default) runs on the problem's device; an int
+        (that many visible cards, or that many CPU shards for a problem
+        on the CPU) or a list of devices splits the densities (each
+        chunk's, on the einsum form) over them
+        (``parallel/sweep.shard_sweep_inputs``), each device running its
+        part at the same time, one host thread a device
+        (``parallel/sweep.run_on_devices``).  On a host of four H100s,
+        BASELINE config 5 ran slower split over the four cards than on
+        one (PERF.md), so one device is the default.
 
     Returns
     -------
     energies [B, L], iterations [B, L], converged [B, L] (a lane that did
     not converge is flagged, and a warning names how many)
     """
-    from .parallel.sweep import (SweepKernel, sweep_compliance,
-                                 sweep_compliance_pairs)
+    from .parallel import sweep as sweep_mod
+    from .parallel.sweep import (SweepKernel, sweep_all_pairs,
+                                 sweep_compliance)
 
     material = material or problem.material
     mask = free_mask_from_bcs(problem.n_dofs, problem.bcs)
@@ -994,33 +1159,42 @@ def evaluate_design_batch(problem: Problem, densities: np.ndarray,
     loads = np.asarray(problem.f[None] if load_cases is None
                        else load_cases, np.float64)
     B, L = esc.shape[0], loads.shape[0]
-
-    if lane_chunk is None:
-        kernel = SweepKernel.build(problem.mesh, nu, mask, dtype=dtype,
-                                   full_ke=True, device=problem.device)
-        P = B * L
-        chunk = min(P, kernel.lanes_that_fit())
-        bi, lj = np.divmod(np.arange(P), L)
-        e_out, it_out, cv_out = (np.empty(P), np.empty(P, np.int64),
-                                 np.empty(P, bool))
-        for c0 in range(0, P, chunk):
-            sl = slice(c0, min(c0 + chunk, P))
-            e, it, cv = sweep_compliance_pairs(
-                kernel, esc[bi[sl]], loads[lj[sl]], tol=tol, maxiter=maxiter)
-            e_out[sl], it_out[sl], cv_out[sl] = (
-                e.cpu().numpy(), it.cpu().numpy(), cv.cpu().numpy())
-        energies, iters, conv = (e_out.reshape(B, L), it_out.reshape(B, L),
-                                 cv_out.reshape(B, L))
+    pairs = lane_chunk is None
+    dev_mesh = None
+    if devices is None:
+        devices = [problem.device]
     else:
-        kernel = SweepKernel.build(problem.mesh, nu, mask, dtype=dtype,
-                                   device=problem.device)
+        n_dev = devices if isinstance(devices, int) else len(devices)
+        dev_mesh = _device_mesh(problem, devices, data_parallel=n_dev)
+        devices = dev_mesh.data_devices
+    kernels = {d: SweepKernel.build(problem.mesh, nu, mask, dtype=dtype,
+                                    full_ke=pairs, device=d)
+               for d in dict.fromkeys(devices)}
+
+    def split(block):
+        """[(device, densities' scales, loads)], one per data shard."""
+        if dev_mesh is None:
+            return [(devices[0], block, loads)]
+        escs, lds = sweep_mod.shard_sweep_inputs(dev_mesh, block, loads)
+        return [(d, e, f) for d, e, f in zip(devices, escs, lds)
+                if e.shape[0]]
+
+    def einsum_part(kernel, e, f):
+        return [t.cpu().numpy() for t in sweep_compliance(
+            kernel, e, f, tol=tol, maxiter=maxiter)]
+
+    if pairs:
+        jobs = [(d, functools.partial(sweep_all_pairs, kernels[d], e, f,
+                                      tol=tol, maxiter=maxiter))
+                for d, e, f in split(esc)]
+    else:
         chunk = max(1, min(int(lane_chunk), B))
-        parts = [sweep_compliance(kernel, esc[c0:c0 + chunk], loads,
-                                  tol=tol, maxiter=maxiter)
-                 for c0 in range(0, B, chunk)]
-        energies, iters, conv = (
-            np.concatenate([p[i].cpu().numpy() for p in parts])
-            for i in range(3))
+        jobs = [(d, functools.partial(einsum_part, kernels[d], e, f))
+                for c0 in range(0, B, chunk)
+                for d, e, f in split(esc[c0:c0 + chunk])]
+    parts = sweep_mod.run_on_devices(jobs)
+    energies, iters, conv = (np.concatenate([p[i] for p in parts])
+                             for i in range(3))
     if not conv.all():
         print_warning(
             f"{int((~conv).sum())} of {conv.size} sweep lanes did not "

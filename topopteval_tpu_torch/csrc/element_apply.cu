@@ -742,36 +742,42 @@ tile_apply_kernel(const T* __restrict__ coords, const int* __restrict__ tnodes,
     cp_async_wait_all();
 }
 
+constexpr int MAX_DEVICES = 64;
+
 template <typename T, int TE, class B>
 int launch_tiles(const void* coords, const void* tnodes, const void* lconn,
                  const void* u, const void* lam, const void* mu, void* out,
                  long long C, int max_nodes, const typename B::Args& args,
                  cudaStream_t stream) {
-    static int sms = 0;
-    static bool attr = false;
-    if (sms == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (!attr) {    // up to 227 KB of shared memory (K TE distinct nodes)
+    // a function's attributes and the card's figures are per device: the
+    // launch sets them up once on each card it runs on (the current one)
+    static int sms[MAX_DEVICES] = {};
+    static bool attr[MAX_DEVICES] = {};
+    static size_t last_smem[MAX_DEVICES] = {};
+    static int per_sm[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidValue;
+    if (sms[dev] == 0)
+        cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (!attr[dev]) {   // up to 227 KB of shared memory (K TE distinct nodes)
         cudaFuncSetAttribute(tile_apply_kernel<T, TE, B>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              227 * 1024);
-        attr = true;
+        attr[dev] = true;
     }
     const int n_tiles = (int)((C + TE - 1) / TE);
     const size_t smem = (3 * B::K * TE + 12 * (size_t)max_nodes) * sizeof(T)
                         + 2 * (size_t)max_nodes * sizeof(int);
-    static size_t last_smem = 0;
-    static int per_sm = 0;
-    if (smem != last_smem) {
+    if (smem != last_smem[dev]) {
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, tile_apply_kernel<T, TE, B>, TE * B::TPE, smem);
-        last_smem = smem;
+            &per_sm[dev], tile_apply_kernel<T, TE, B>, TE * B::TPE, smem);
+        last_smem[dev] = smem;
     }
-    if (per_sm < 1) return (int)cudaErrorInvalidValue;
-    const int grid = (int)std::min<long long>(n_tiles, (long long)per_sm * sms);
+    if (per_sm[dev] < 1) return (int)cudaErrorInvalidValue;
+    const int grid = (int)std::min<long long>(n_tiles,
+                                              (long long)per_sm[dev] * sms[dev]);
     tile_apply_kernel<T, TE, B><<<grid, TE * B::TPE, smem, stream>>>(
         (const T*)coords, (const int*)tnodes, (const short*)lconn, (const T*)u,
         (const T*)lam, (const T*)mu, (T*)out, (int64_t)C, n_tiles, max_nodes,

@@ -467,6 +467,8 @@ tet4_ke_lanes_kernel(const T* __restrict__ ct, const T* __restrict__ lam2,
         }
 }
 
+constexpr int MAX_DEVICES = 64;
+
 // cudaFuncSetAttribute for a dynamic tile above 48 KB; an error if the
 // card's opt-in limit is smaller than the tile
 template <typename Kernel>
@@ -489,11 +491,15 @@ int launch_sym_ke(const void* coords, const void* conn, const void* lam,
                   const void* mu, const void* table, void* out, long long C,
                   void* stream) {
     constexpr size_t bytes = sym_ke_smem<T, K, NQ, E>();
-    static bool ready = false;
-    if (!ready) {
+    // the attribute is per device: set once on each card that launches
+    static bool ready[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidValue;
+    if (!ready[dev]) {
         const cudaError_t err = allow_smem(sym_ke_kernel<T, K, NQ, E>, bytes);
         if (err != cudaSuccess) return (int)err;
-        ready = true;
+        ready[dev] = true;
     }
     if (C > 0) {
         const long long blocks = (C + E - 1) / E;

@@ -484,16 +484,23 @@ constexpr int plane_chunk_max() {
     return (int)((PLANE_SMEM / sizeof(T) - 24 * PT) / (RY * RX)) - 2;
 }
 
+constexpr int MAX_DEVICES = 64;
+
 // Node planes a block marches over: within the shared-memory cap, the z
 // chunk that spreads the (zn + 1)-layer blocks most evenly over the SMs
 // (ties: the longer chunk, which recomputes fewer halo layers).
 int plane_chunk(int nx, int ny, int nz, int zn_max) {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (sms <= 0) sms = 132;
+    static int sms_of[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int sms = 132;
+    if (dev >= 0 && dev < MAX_DEVICES) {
+        if (sms_of[dev] == 0) {
+            cudaDeviceGetAttribute(&sms_of[dev],
+                                   cudaDevAttrMultiProcessorCount, dev);
+            if (sms_of[dev] <= 0) sms_of[dev] = 132;
+        }
+        sms = sms_of[dev];
     }
     const long long xy = (long long)((nx + CX - 1) / (CX - 1)) *
                          ((ny + CY - 1) / (CY - 1));
@@ -515,14 +522,18 @@ template <typename T>
 int launch_plane(const void* u, const void* esc, const void* table, void* y,
                  int nx, int ny, int nz, int zn, void* stream) {
     constexpr int zn_max = plane_chunk_max<T>();
-    static bool ready = false;
-    if (!ready) {
+    // the attribute is per device: set once on each card that launches
+    static bool ready[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidValue;
+    if (!ready[dev]) {
         const cudaError_t err = cudaFuncSetAttribute(
             stencil_plane_kernel<T>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)plane_smem<T>(zn_max));
         if (err != cudaSuccess) return (int)err;
-        ready = true;
+        ready[dev] = true;
     }
     const int NZ = nz + 1;
     if (zn <= 0) zn = plane_chunk(nx, ny, nz, zn_max);

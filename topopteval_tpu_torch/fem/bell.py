@@ -54,8 +54,8 @@ from ..ops.bell import (BlockCSR, bell_matvec, csr_arrays, pad_rows,
                         sell_matvec)
 from .multigrid import MultigridPreconditioner
 
-_SKEL_VERSION = 1     # bump to invalidate on-disk skeleton caches
-_HIER_VERSION = 1     # bump to invalidate on-disk hierarchy caches
+_SKEL_VERSION = 2     # bump to invalidate on-disk skeleton caches
+_HIER_VERSION = 2     # bump to invalidate on-disk hierarchy caches
 #: tag of the port's hierarchy files (the JAX package's have another format)
 _HIER_FORMAT = "topopteval_tpu_torch.bell"
 
@@ -180,7 +180,8 @@ class BellSystem:
     dmesh = None
 
     def __init__(self, matrix: BellMatrix, perm: np.ndarray, n_nodes: int,
-                 dtype, host_bsr: dict):
+                 dtype, host_bsr: dict,
+                 fine_transfer: Optional[dict] = None):
         self.matrix = matrix
         self.perm = np.asarray(perm, np.int64)        # new pos -> old node
         self.n_nodes = int(n_nodes)
@@ -188,6 +189,11 @@ class BellSystem:
         #: fp64 scipy BSR arrays (indptr, indices, data) of the fine
         #: operator, unmasked, over the n_nodes real rows
         self.host_bsr = host_bsr
+        #: the fine-level P triplets of the hierarchy (``rows``: fine RCM
+        #: positions, ``cols``: level-1 positions, ``w`` float64,
+        #: ``n_coarse``), from which a sharded V-cycle builds its own
+        #: transfer (parallel/halo_mg.py); None if the source had none
+        self.fine_transfer = fine_transfer
         self._csr64 = None
         #: host seconds spent in matvec64 (the refinement's residuals)
         self.matvec_seconds = 0.0
@@ -544,8 +550,25 @@ def _from_host(host: dict, dtype, device) -> Tuple[BellSystem, BellMG]:
     system = BellSystem(fine, host["perm"], int(host["n_nodes"]), dtype,
                         {"indptr": host["hb_indptr"],
                          "indices": host["hb_indices"],
-                         "data": host["hb_data"]})
+                         "data": host["hb_data"]},
+                        _fine_transfer(host))
     return system, mg
+
+
+#: the host-array keys of the fine transfer (the JAX package's names)
+_FT_KEYS = ("ft_rows", "ft_cols", "ft_w", "ft_nc")
+
+
+def _fine_transfer(arrays) -> Optional[dict]:
+    """``BellSystem.fine_transfer`` from the ``ft_*`` host arrays of a
+    skeleton, a hierarchy or a JAX-package hierarchy file (None where
+    they are missing)."""
+    if "ft_rows" not in arrays:
+        return None
+    return {"rows": np.asarray(arrays["ft_rows"], np.int32),
+            "cols": np.asarray(arrays["ft_cols"], np.int32),
+            "w": np.asarray(arrays["ft_w"], np.float64),
+            "n_coarse": int(arrays["ft_nc"])}
 
 
 def bell_from_numpy(arrays, dtype, device="cuda"
@@ -554,8 +577,9 @@ def bell_from_numpy(arrays, dtype, device="cuda"
     ``save_hierarchy`` format (an opened ``.npz`` or a dict with its keys:
     ``perm``, ``n_nodes``, ``nu``, ``n_levels``, ``smoother``,
     ``coarse_inv``, ``L{i}_cols2/vals2/cmeta/mask/binv9/lam_max/meta``,
-    ``L{i}_t_*``, ``fine_vals2_lo``, ``hb_*``), so both packages can run
-    one and the same hierarchy.
+    ``L{i}_t_*``, ``fine_vals2_lo``, ``hb_*``, and ``ft_*`` where the
+    file has the fine transfer), so both packages can run one and the
+    same hierarchy.
 
     The chunk-aligned slots are re-packed into block-CSR; pad slots (all
     values zero, in both planes for the fine operator) are dropped, as the
@@ -588,6 +612,7 @@ def bell_from_numpy(arrays, dtype, device="cuda"
             "hb_indptr": np.asarray(arrays["hb_indptr"]),
             "hb_indices": np.asarray(arrays["hb_indices"]),
             "hb_data": np.asarray(arrays["hb_data"], np.float64)}
+    host.update({kk: arrays[kk] for kk in _FT_KEYS if kk in arrays})
     for i in range(n_levels):
         S, Np = (int(x) for x in arrays[f"L{i}_meta"])
         planes = [arrays[f"L{i}_vals2"]]
@@ -823,6 +848,13 @@ def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
         p_cols = inv_c[p_cols]
         prev_lattice_perm = perm_c
         mask_next = mask_next_lat.reshape(n_next, 3)[perm_c].reshape(-1)
+        if li == 0:
+            # raw fine-level P triplets, for a sharded V-cycle's own
+            # transfer (BellSystem.fine_transfer)
+            skel.update({"ft_rows": p_rows.astype(np.int32),
+                         "ft_cols": p_cols.astype(np.int32),
+                         "ft_w": p_w.astype(np.float64),
+                         "ft_nc": np.int64(n_next)})
 
         # P in final coarse order, as a scalar matrix and as 3x3 blocks
         # (w * I3) for the blockwise Galerkin products
@@ -998,6 +1030,7 @@ def _build_bell_values(skel: dict, lam, mu, dtype, device
             "nu": _NU, "smoother": "chebyshev", "n_levels": L,
             "L0_indptr": _pad_indptr(skel["bsr_indptr"], n_rows_p),
             "L0_cols": cols_d}
+    host.update({kk: skel[kk] for kk in _FT_KEYS if kk in skel})
     if np_dt == np.float32:
         hi = blocks.astype(np.float32)
         host["L0_vals"] = hi
@@ -1098,6 +1131,7 @@ def _build_bell_values(skel: dict, lam, mu, dtype, device
         torch.cuda.synchronize(system.device)
     t0 = tick("upload", t0)
     info["host_arrays"] = host
+    info["fine_transfer"] = system.fine_transfer
     info["route"] = "skeleton"
     info["host_library"] = native_available()
     info["value_seconds"] = round(time.perf_counter() - t_all, 3)
@@ -1320,10 +1354,10 @@ def _build_legacy(mesh, lam, mu, free_mask, dtype, max_coarse_dofs, order,
         if li == 0:
             # raw fine-level P triplets (rows: fine RCM positions, cols:
             # level-1 positions), for a sharded V-cycle's own transfer
-            info["fine_transfer"] = {
-                "rows": p_rows.astype(np.int32),
-                "cols": p_cols.astype(np.int32),
-                "w": p_w.astype(np.float64), "n_coarse": int(n_next)}
+            host.update({"ft_rows": p_rows.astype(np.int32),
+                         "ft_cols": p_cols.astype(np.int32),
+                         "ft_w": p_w.astype(np.float64),
+                         "ft_nc": np.int64(n_next)})
         nf_p, nc_p = pad_rows(n_cur), pad_rows(n_next)
         P_fin = sp.coo_matrix((p_w, (p_rows, p_cols)),
                               shape=(n_cur, n_next)).tocsr()
@@ -1370,6 +1404,7 @@ def _build_legacy(mesh, lam, mu, free_mask, dtype, max_coarse_dofs, order,
     t0 = tick("upload", t0)
     info.update({
         "host_arrays": host, "route": "monolithic",
+        "fine_transfer": system.fine_transfer,
         "host_library": native_available(), "skeleton_cached": False,
         "value_seconds": round(time.perf_counter() - t_all, 3),
         "skeleton_seconds": 0.0, "n_levels": L + 1,
@@ -1531,5 +1566,6 @@ def load_hierarchy(path: str, dtype, device="cuda"
             "build_seconds": float(z["build_seconds"]),
             "n_levels": int(z["n_levels"]) + 1,
             "fine_blocks": int(host["L0_cols"].shape[0]),
-            "device_bytes": _device_bytes(system, mg)}
+            "device_bytes": _device_bytes(system, mg),
+            "fine_transfer": system.fine_transfer}
     return system, mg, info

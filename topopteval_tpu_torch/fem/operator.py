@@ -52,6 +52,55 @@ def _ke_batch(dmesh: DeviceMesh, lam: torch.Tensor, mu: torch.Tensor,
                              dmesh.element_type, order)
 
 
+def check_kernel_rule(element_type: str, order: int) -> None:
+    """Refuse an ``otf`` operator whose quadrature order gives another rule
+    than the element type's apply kernel implements."""
+    rule = _KERNEL_RULE.get(element_type)
+    if rule is not None and QUADRATURE.get((rule[0], order)) \
+            is not QUADRATURE[rule]:
+        raise ValueError(
+            f"the {element_type} apply kernel implements the "
+            f"{QUADRATURE[rule][1].size}-point order-2 rule; order="
+            f"{order} gives another")
+
+
+def element_forces(coords: torch.Tensor, conn: torch.Tensor,
+                   u: torch.Tensor, lam: torch.Tensor, mu: torch.Tensor,
+                   element_type: str, order: int) -> torch.Tensor:
+    """f_e = Ke u_e [C, k, 3] for every element of ``conn`` over the node
+    table ``coords`` [N, 3] and ``u`` [3N]: the fused apply kernel of the
+    element type (its plain version on the CPU), the batched plain apply
+    for hex20, which has a kernel in neither package."""
+    if element_type in _APPLY:
+        return _APPLY[element_type](coords, conn, u.contiguous(), lam, mu)
+    idx = conn.long()
+    return apply_element_stiffness(coords[idx], u.reshape(-1, DIM)[idx],
+                                   lam, mu, element_type, order)
+
+
+def element_diagonals(g: torch.Tensor, wdet: torch.Tensor,
+                      lam: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """Each element's share of diag(K) [C, k, 3] from its gradients
+    g [C, q, k, 3] and weights wdet [C, q], without materializing Ke:
+    Ke[(i,a),(i,a)] = sum_q wdet ((lam+mu) g_ia^2 + mu |g_i|^2)."""
+    g2 = g * g
+    norm2 = torch.sum(g2, dim=-1, keepdim=True)
+    return (torch.einsum("cq,cqka->cka", wdet * (lam + mu)[:, None], g2)
+            + torch.einsum("cq,cqka->cka", wdet * mu[:, None],
+                           torch.broadcast_to(norm2, g2.shape)))
+
+
+def element_node_blocks(g: torch.Tensor, wdet: torch.Tensor,
+                        lam: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """Each element's 3x3 node-diagonal blocks [C, k, 3, 3]:
+    block(i)_ab = sum_q wdet (lam g_a g_b + mu g_b g_a + mu d_ab |g|^2)."""
+    outer = (torch.einsum("cq,cqka,cqkb->ckab", wdet * lam[:, None], g, g)
+             + torch.einsum("cq,cqkb,cqka->ckab", wdet * mu[:, None], g, g))
+    norm2 = torch.einsum("cq,cqka,cqka->ck", wdet * mu[:, None], g, g)
+    eye = torch.eye(DIM, dtype=g.dtype, device=g.device)
+    return outer + norm2[..., None, None] * eye
+
+
 def _cells(x, dmesh: DeviceMesh) -> torch.Tensor:
     """A scalar or per-element value as a contiguous [C] tensor."""
     return torch.broadcast_to(torch.as_tensor(
@@ -87,13 +136,8 @@ class StiffnessOperator:
         if mode not in _MODES:
             raise ValueError(f"operator mode must be one of {_MODES}, got "
                              f"{mode!r}")
-        rule = _KERNEL_RULE.get(dmesh.element_type)
-        if (mode == "otf" and rule is not None
-                and QUADRATURE.get((rule[0], order)) is not QUADRATURE[rule]):
-            raise ValueError(
-                f"the {dmesh.element_type} apply kernel implements the "
-                f"{QUADRATURE[rule][1].size}-point order-2 rule; order="
-                f"{order} gives another")
+        if mode == "otf":
+            check_kernel_rule(dmesh.element_type, order)
         lam = _cells(lam, dmesh)
         mu = _cells(mu, dmesh)
         plan = RowScatterPlan.build(dmesh.conn.cpu().numpy(),
@@ -130,15 +174,9 @@ class StiffnessOperator:
             C, ek, _ = self.ke.shape
             u_e = u.reshape(-1, DIM)[dm.conn.long()].reshape(C, ek, 1)
             f_e = torch.bmm(self.ke, u_e).reshape(C, -1, DIM)
-        elif dm.element_type in _APPLY:
-            f_e = _APPLY[dm.element_type](dm.coords, dm.conn, u.contiguous(),
-                                          self.lam, self.mu)
-        else:               # hex20: no kernel in either package
-            idx = dm.conn.long()
-            f_e = apply_element_stiffness(dm.coords[idx],
-                                          u.reshape(-1, DIM)[idx], self.lam,
-                                          self.mu, dm.element_type,
-                                          self.order)
+        else:
+            f_e = element_forces(dm.coords, dm.conn, u, self.lam, self.mu,
+                                 dm.element_type, self.order)
         return self.plan.scatter_add(f_e).reshape(-1)
 
     def matvec(self, u: torch.Tensor) -> torch.Tensor:
@@ -154,16 +192,10 @@ class StiffnessOperator:
                                   dm.element_type, self.order)
 
     def diagonal_raw(self) -> torch.Tensor:
-        """diag(K) without materializing Ke:
-        Ke[(i,a),(i,a)] = sum_q wdet ((lam+mu) g_ia^2 + mu |g_i|^2)."""
+        """diag(K) without materializing Ke (:func:`element_diagonals`)."""
         g, wdet = self._geometry()
-        g2 = g * g
-        norm2 = torch.sum(g2, dim=-1, keepdim=True)
-        vals = (torch.einsum("cq,cqka->cka",
-                             wdet * (self.lam + self.mu)[:, None], g2)
-                + torch.einsum("cq,cqka->cka", wdet * self.mu[:, None],
-                               torch.broadcast_to(norm2, g2.shape)))
-        return self.plan.scatter_add(vals).reshape(-1)
+        return self.plan.scatter_add(
+            element_diagonals(g, wdet, self.lam, self.mu)).reshape(-1)
 
     def diagonal(self) -> torch.Tensor:
         """diag of the constrained operator (fixed dofs get 1.0)."""
@@ -171,16 +203,10 @@ class StiffnessOperator:
         return m * m * self.diagonal_raw() + (1.0 - m)
 
     def node_blocks_raw(self) -> torch.Tensor:
-        """3x3 node-diagonal blocks [n_nodes, 3, 3] for block-Jacobi:
-        block(i)_ab = sum_q wdet (lam g_a g_b + mu g_b g_a + mu d_ab |g|^2)."""
+        """3x3 node-diagonal blocks [n_nodes, 3, 3] for block-Jacobi
+        (:func:`element_node_blocks`)."""
         g, wdet = self._geometry()
-        outer = (torch.einsum("cq,cqka,cqkb->ckab",
-                              wdet * self.lam[:, None], g, g)
-                 + torch.einsum("cq,cqkb,cqka->ckab",
-                                wdet * self.mu[:, None], g, g))
-        norm2 = torch.einsum("cq,cqka,cqka->ck", wdet * self.mu[:, None], g, g)
-        eye = torch.eye(DIM, dtype=g.dtype, device=g.device)
-        blocks = outer + norm2[..., None, None] * eye
+        blocks = element_node_blocks(g, wdet, self.lam, self.mu)
         C, k = blocks.shape[:2]
         return self.plan.scatter_add(blocks.reshape(C, k, DIM * DIM)).reshape(
             -1, DIM, DIM)

@@ -70,8 +70,18 @@ def apply_preconditioner(M, r: torch.Tensor) -> torch.Tensor:
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Inner product accumulated in float64 (solvers.py:95-99)."""
-    return torch.dot(a.double(), b.double())
+    """Inner product accumulated in float64 (solvers.py:95-99).  A sharded
+    slab vector (parallel/collectives.SlabVector) sums its shards'
+    float64 partial dots in shard order."""
+    if isinstance(a, torch.Tensor):
+        return torch.dot(a.double(), b.double())
+    return a.dot64(b)
+
+
+def _zeros_like(b):
+    """``torch.zeros_like``, also for a sharded slab vector."""
+    return torch.zeros_like(b) if isinstance(b, torch.Tensor) \
+        else b.zeros_like()
 
 
 def cg(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, M=None,
@@ -79,9 +89,10 @@ def cg(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, M=None,
        record_history: bool = False) -> KrylovResult:
     """Preconditioned conjugate gradients for SPD operators (the
     reference's ``Krylov.cg`` path, RobustSolver.jl:332-338).  ``A``
-    exposes ``.matvec``."""
+    exposes ``.matvec``; ``b`` may be a tensor or a sharded slab vector
+    (parallel/collectives.SlabVector, with ``A`` and ``M`` sharded)."""
     A = _wrap_operator(A)
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    x = _zeros_like(b) if x0 is None else x0.clone()
     r = b - A.matvec(x)
     z = apply_preconditioner(M, r)
     p = z.clone()

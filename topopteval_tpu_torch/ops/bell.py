@@ -228,9 +228,10 @@ def _launch(name: str, suffix: str, args, A: BlockCSR, u_cm: torch.Tensor,
     out = torch.empty((3, A.n_rows), dtype=u_cm.dtype, device=u_cm.device)
     lib = _library()
     stream = torch.cuda.current_stream(u_cm.device).cuda_stream
-    err = getattr(lib, f"{name}_{suffix}")(
-        *args, u_cm.data_ptr(), out.data_ptr(), A.n_rows, A.n_cols, *extra,
-        stream)
+    with torch.cuda.device(u_cm.device):
+        err = getattr(lib, f"{name}_{suffix}")(
+            *args, u_cm.data_ptr(), out.data_ptr(), A.n_rows, A.n_cols,
+            *extra, stream)
     if err != 0:
         msg = lib.bell_apply_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "

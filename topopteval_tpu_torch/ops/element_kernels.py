@@ -229,9 +229,10 @@ def _launch(name: str, coords, conn, u, lam, mu) -> torch.Tensor:
     stream = torch.cuda.current_stream(coords.device).cuda_stream
     t = element_tiles(conn)
     rule = tet10_rule() if name == "tet10_apply" else ()
-    err = fn(coords.data_ptr(), t.nodes.data_ptr(), t.lconn.data_ptr(),
-             u.data_ptr(), lam.data_ptr(), mu.data_ptr(), out.data_ptr(), C,
-             t.tile, t.max_nodes, *rule, stream)
+    with torch.cuda.device(coords.device):
+        err = fn(coords.data_ptr(), t.nodes.data_ptr(), t.lconn.data_ptr(),
+                 u.data_ptr(), lam.data_ptr(), mu.data_ptr(), out.data_ptr(),
+                 C, t.tile, t.max_nodes, *rule, stream)
     if err != 0:
         msg = lib.element_apply_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "

@@ -256,10 +256,11 @@ def _apply(name: str, cols2, vals, wblk, u, S: int, kc: int,
     stream = torch.cuda.current_stream(u.device).cuda_stream
     warps = (window_warps(S, rows) if name == "bell_window"
              else sell_warps(S))
-    err = getattr(lib, f"{name}_{_SUFFIX[u.dtype]}")(
-        cols2.data_ptr(), vals.data_ptr(), wblk.data_ptr(), u.data_ptr(),
-        out.data_ptr(), S, kc, wblk.shape[0], rows, n_cols, u_cs, u_ns,
-        o_cs, o_ns, warps, stream)
+    with torch.cuda.device(u.device):
+        err = getattr(lib, f"{name}_{_SUFFIX[u.dtype]}")(
+            cols2.data_ptr(), vals.data_ptr(), wblk.data_ptr(),
+            u.data_ptr(), out.data_ptr(), S, kc, wblk.shape[0], rows,
+            n_cols, u_cs, u_ns, o_cs, o_ns, warps, stream)
     if err != 0:
         msg = lib.ell_apply_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
@@ -416,10 +417,11 @@ def bell_ablate(mode: str, cols2: torch.Tensor, vals2: torch.Tensor,
     rows = Nt * LANES
     out = torch.empty((3, rows), dtype=u.dtype, device=u.device)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = getattr(lib, f"ell_ablate_{_SUFFIX[u.dtype]}")(
-        ABLATE_MODES.index(mode), cols2.data_ptr(), vals2.data_ptr(),
-        wblk.data_ptr(), u.data_ptr(), out.data_ptr(), S, kc, Nt, rows,
-        u.shape[1], u.stride(0), stream)
+    with torch.cuda.device(u.device):
+        err = getattr(lib, f"ell_ablate_{_SUFFIX[u.dtype]}")(
+            ABLATE_MODES.index(mode), cols2.data_ptr(), vals2.data_ptr(),
+            wblk.data_ptr(), u.data_ptr(), out.data_ptr(), S, kc, Nt, rows,
+            u.shape[1], u.stride(0), stream)
     if err != 0:
         msg = lib.ell_ablate_error_string(err).decode()
         raise RuntimeError(f"bell_ablate kernel launch failed: CUDA error "

@@ -90,7 +90,8 @@ def _launch(name: str, coords, conn, lam, mu) -> torch.Tensor:
     if name in _TABLE_RULE:
         ptrs.append(rule_table(_TABLE_RULE[name], dtype,
                                coords.device).data_ptr())
-    err = fn(*ptrs, out.data_ptr(), C, stream)
+    with torch.cuda.device(coords.device):
+        err = fn(*ptrs, out.data_ptr(), C, stream)
     if err != 0:
         msg = lib.element_ke_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
@@ -182,8 +183,9 @@ def _lanes(name: str, ct, lam2, mu2, block: int) -> torch.Tensor:
     lib = _library()
     fn = getattr(lib, f"{name}_{'f32' if ct.dtype == torch.float32 else 'f64'}")
     stream = torch.cuda.current_stream(ct.device).cuda_stream
-    err = fn(ct.data_ptr(), lam2.data_ptr(), mu2.data_ptr(), out.data_ptr(),
-             Cp, block, stream)
+    with torch.cuda.device(ct.device):
+        err = fn(ct.data_ptr(), lam2.data_ptr(), mu2.data_ptr(),
+                 out.data_ptr(), Cp, block, stream)
     if err != 0:
         msg = lib.element_ke_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "

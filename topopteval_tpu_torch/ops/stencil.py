@@ -183,8 +183,9 @@ def _launch(name: str, u, esc, table, dims) -> torch.Tensor:
     stream = torch.cuda.current_stream(u.device).cuda_stream
     nx, ny, nz = dims
     chunk = (0,) if name == "stencil_plane" else ()
-    err = fn(u.data_ptr(), None if esc is None else esc.data_ptr(),
-             table.data_ptr(), y.data_ptr(), nx, ny, nz, *chunk, stream)
+    with torch.cuda.device(u.device):
+        err = fn(u.data_ptr(), None if esc is None else esc.data_ptr(),
+                 table.data_ptr(), y.data_ptr(), nx, ny, nz, *chunk, stream)
     if err != 0:
         msg = lib.stencil_apply_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "

@@ -23,9 +23,11 @@ reduction blocking change with the width), as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-from typing import Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -341,6 +343,73 @@ def sweep_compliance_pairs(kernel: SweepKernel, escales, loads,
     escales [P, C], loads [P, ndof] → energies, iterations, converged [P]."""
     return solve_lanes(kernel, *_as_lanes(kernel, escales, loads), tol,
                        maxiter)
+
+
+def shard_sweep_inputs(device_mesh, escales, loads):
+    """Split the density batch [B, C] over the ``data`` axis of
+    ``device_mesh`` (a :class:`.sharding.DeviceMesh`) and place the loads
+    [L, ndof] on each data shard's device: (escales parts, loads copies),
+    one per data shard, in batch order.  Each part's lanes then run on
+    their own device with no communication until the results are
+    gathered."""
+    devices = device_mesh.data_devices
+    esc = torch.as_tensor(np.asarray(escales) if not torch.is_tensor(escales)
+                          else escales)
+    f = torch.as_tensor(np.asarray(loads) if not torch.is_tensor(loads)
+                        else loads)
+    return ([part.to(d) for part, d in zip(
+                torch.tensor_split(esc, len(devices)), devices)],
+            [f.to(d) for d in devices])
+
+
+def sweep_all_pairs(kernel: SweepKernel, escales, loads,
+                    tol: float = 1e-6, maxiter: int = 5000):
+    """Every (density, load) pair of ``escales`` [B, C] × ``loads``
+    [L, ndof] as one lane of the GEMM form, as many lanes a call as the
+    kernel's device holds (:meth:`SweepKernel.lanes_that_fit`): energies,
+    iterations, converged [B, L] as NumPy arrays."""
+    B, L = escales.shape[0], loads.shape[0]
+    P = B * L
+    chunk = min(P, kernel.lanes_that_fit())
+    bi, lj = np.divmod(np.arange(P), L)
+    e_out, it_out, cv_out = (np.empty(P), np.empty(P, np.int64),
+                             np.empty(P, bool))
+    for c0 in range(0, P, chunk):
+        sl = slice(c0, min(c0 + chunk, P))
+        e, it, cv = sweep_compliance_pairs(kernel, escales[bi[sl]],
+                                           loads[lj[sl]], tol=tol,
+                                           maxiter=maxiter)
+        e_out[sl], it_out[sl], cv_out[sl] = (
+            e.cpu().numpy(), it.cpu().numpy(), cv.cpu().numpy())
+    return e_out.reshape(B, L), it_out.reshape(B, L), cv_out.reshape(B, L)
+
+
+def run_on_devices(jobs: Sequence[Tuple[torch.device, Callable]]) -> List:
+    """Run ``jobs`` [(device, fn)] and return their results in job order.
+    The jobs of one device run in turn; each distinct device gets a host
+    thread of its own, so the cards work at the same time (the lanes'
+    loops wait on the card each iteration, and a waiting thread lets the
+    others launch).  With one device the jobs run in this thread."""
+    groups = {}
+    for i, (d, _) in enumerate(jobs):
+        groups.setdefault(d, []).append(i)
+    out = [None] * len(jobs)
+
+    def run(idx):
+        d = jobs[idx[0]][0]
+        with (torch.cuda.device(d) if d.type == "cuda"
+              else contextlib.nullcontext()):
+            for i in idx:
+                out[i] = jobs[i][1]()
+
+    if len(groups) <= 1:
+        for idx in groups.values():
+            run(idx)
+        return out
+    with ThreadPoolExecutor(len(groups)) as pool:
+        for fut in [pool.submit(run, idx) for idx in groups.values()]:
+            fut.result()
+    return out
 
 
 def simp_scales(material: SIMPMaterial, densities):
