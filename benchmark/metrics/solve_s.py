@@ -1,0 +1,8 @@
+"""solve_s: the window's seconds, first request's start to the last
+one's end, over the load cases it certified; host clock."""
+
+UNIT = "s"
+
+
+def read(run):
+    return run.window_s / len(run.records) if run.records else None
