@@ -3,7 +3,8 @@ of tests/test_profiling.py), on the CPU.
 
 ``device_tree_bytes`` is held to the sum of an operator's tensors counted
 by hand, a shared storage once; ``profile_to`` writes a Chrome trace that
-names the operator's ops; ``trace`` lets the body's errors through.
+names the operator's ops and the timer's phase.  Spans and their profiler
+ranges: tests/test_torch_tracing.py.
 """
 
 import json
@@ -17,7 +18,7 @@ import torch
 import topopteval_tpu_torch as tt
 from topopteval_tpu_torch.utils.profiling import (PhaseTimer,
                                                   device_tree_bytes,
-                                                  profile_to, trace)
+                                                  profile_to)
 
 tt.set_verbosity(False)
 torch.set_num_threads(1)
@@ -25,13 +26,13 @@ torch.set_num_threads(1)
 
 def test_phase_timer_accumulates_and_reports():
     t = PhaseTimer()
-    with t.phase("assemble", annotate_device=False):
+    with t.phase("assemble"):
         time.sleep(0.01)
     for _ in range(3):
         with t.phase("solve"):
             time.sleep(0.005)
-    with t.phase("solve", annotate_device=False):
-        with t.phase("inner", annotate_device=False):
+    with t.phase("solve"):
+        with t.phase("inner"):
             time.sleep(0.002)
     d = t.as_dict()
     assert d["assemble"] >= 0.01
@@ -40,15 +41,6 @@ def test_phase_timer_accumulates_and_reports():
     rep = t.report()
     assert "assemble" in rep and "%" in rep
     assert t.total() >= d["assemble"] + d["solve"]
-
-
-def test_trace_context_manager_lets_errors_through():
-    with trace("phase-x"):
-        x = 1 + 1
-    assert x == 2
-    with pytest.raises(ZeroDivisionError):
-        with trace("phase-y"):
-            1 / 0
 
 
 def test_solve_results_carry_timings():
@@ -98,7 +90,7 @@ def test_profile_to_writes_a_chrome_trace(tmp_path):
     op = _operator()
     u = torch.ones(op.n_dofs, dtype=torch.float64)
     with profile_to(str(tmp_path)) as prof:
-        with trace("three-matvecs"):
+        with PhaseTimer().phase("three-matvecs"):
             for _ in range(3):
                 u = op.matvec(u)
     assert prof.path is not None and os.path.exists(prof.path)

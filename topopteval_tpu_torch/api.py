@@ -47,7 +47,7 @@ from .materials import SIMPMaterial
 from .mesh import DIM, Mesh, dofs_of_nodes, resolve_device
 from .ops.elements import element_volumes
 from .ops.stress import stress_summary
-from .utils.profiling import PhaseRecord, PhaseTimer
+from .utils.profiling import PhaseRecord, PhaseTimer, span
 from .utils.terminal import log, print_warning
 
 #: lower clip of the per-pass inner tolerance in mixed-precision refinement
@@ -565,27 +565,31 @@ def _refined_generic(system, inner, f64, tol, maxiter, device, x0_64=None,
     hists = []
     rn = rn0
     for p in range(max_passes):
-        r64 = f64 if (p == 0 and x0_64 is None) \
-            else f64 - system.matvec64(x64)
-        rn = float(np.linalg.norm(r64))
+        with span("refine/residual"):
+            r64 = f64 if (p == 0 and x0_64 is None) \
+                else f64 - system.matvec64(x64)
+            rn = float(np.linalg.norm(r64))
         if rn <= eps or total >= maxiter:
             break
         log(f"  Refinement pass {p}: true residual = {rn:.6e}")
         s = rn
-        rhs = torch.as_tensor(r64 / s, dtype=dtype, device=device)
+        with span("refine/transfer"):
+            rhs = torch.as_tensor(r64 / s, dtype=dtype, device=device)
         tol_inner = float(np.clip(0.3 * eps / rn, _REFINE_INNER_FLOOR, 1e-4))
         x_dev, n_it, hist = inner(rhs, maxiter - total, tol_inner)
         passes += 1
         if n_it == 0:
             break
-        x64 = x64 + s * x_dev.double().cpu().numpy()
+        with span("refine/transfer"):
+            x64 = x64 + s * x_dev.double().cpu().numpy()
         total += n_it
         if record_history and hist is not None:
             h = np.asarray(hist)[: n_it + 1] * s
             hists.append(h if not hists else h[1:])
     else:
-        r64 = f64 - system.matvec64(x64)
-        rn = float(np.linalg.norm(r64))
+        with span("refine/residual"):
+            r64 = f64 - system.matvec64(x64)
+            rn = float(np.linalg.norm(r64))
     history = (np.concatenate(hists)
                if record_history and hists else None)
     return x64, total, rn, rn <= eps, history, passes
@@ -695,47 +699,51 @@ def _solve_system_sharded(problem: Problem, config: SolverConfig, devices,
     x0_64 = None if x0 is None else np.asarray(x0, np.float64)[:n] * mask
     log(f"Solving linear system (sharded over "
         f"{dev_mesh.shape['elem']} devices)...")
-    t0 = time.perf_counter()
     history = None
     passes = 0
-    if dtype == torch.float32 and (use_mg or config.tolerance < 1e-6):
-        # float32 sharded PCG inner solves inside the float64-certified
-        # refinement: the multigrid route's residuals from the block-ELL
-        # system's host twin (as on one device), the others from the exact
-        # host twin of the operator
-        refine = _Relayout(system) if use_mg else _HostRefineSystem(problem)
+    with timer.phase("solve") as solve_phase:
+        if dtype == torch.float32 and (use_mg or config.tolerance < 1e-6):
+            # float32 sharded PCG inner solves inside the float64-certified
+            # refinement: the multigrid route's residuals from the
+            # block-ELL system's host twin (as on one device), the others
+            # from the exact host twin of the operator
+            refine = (_Relayout(system) if use_mg
+                      else _HostRefineSystem(problem))
 
-        def _inner(rhs, left, tol_inner):
-            r = cg(hop, hop.to_local(rhs.numpy()) * hop.free_mask, M=M,
-                   tol=tol_inner, maxiter=left,
-                   record_history=config.history)
-            return torch.from_numpy(hop.from_local(r.x)), r.niter, r.history
+            def _inner(rhs, left, tol_inner):
+                with span("krylov"):
+                    r = cg(hop, hop.to_local(rhs.numpy()) * hop.free_mask,
+                           M=M, tol=tol_inner, maxiter=left,
+                           record_history=config.history)
+                return (torch.from_numpy(hop.from_local(r.x)), r.niter,
+                        r.history)
 
-        u64, niter, rnorm, conv, history, passes = _refined_generic(
-            refine, _inner, f64, config.tolerance, config.max_iterations,
-            torch.device("cpu"), x0_64=x0_64,
-            record_history=config.history, dtype=dtype)
-        _record_refine(timer, system if use_mg else refine)
-    else:
-        f_slab = hop.to_local(f64) * hop.free_mask
-        x0_slab = (None if x0_64 is None
-                   else hop.to_local(x0_64) * hop.free_mask)
-        res = cg(hop, f_slab, x0=x0_slab, M=M, tol=config.tolerance,
-                 maxiter=config.max_iterations,
-                 record_history=config.history)
-        niter, rnorm, conv = res.niter, res.residual_norm, res.converged
-        history = res.history
-        if conv:
-            # the backward-error gate of the single-device routes
-            eta, ffrac = _backward_error(hop, f_slab, res.x)
-            eps_dt = float(torch.finfo(dtype).eps)
-            if eta > 100.0 * eps_dt + 100.0 * config.tolerance * ffrac:
-                print_warning(f"sharded solution FAILED backward-error "
-                              f"verification (eta={eta:.2e})")
-                conv = False
-        u64 = hop.from_local(res.x)
-    solve_time = time.perf_counter() - t0
-    timer.records["solve"] = PhaseRecord("solve", solve_time)
+            u64, niter, rnorm, conv, history, passes = _refined_generic(
+                refine, _inner, f64, config.tolerance,
+                config.max_iterations, torch.device("cpu"), x0_64=x0_64,
+                record_history=config.history, dtype=dtype)
+            _record_refine(timer, system if use_mg else refine)
+        else:
+            f_slab = hop.to_local(f64) * hop.free_mask
+            x0_slab = (None if x0_64 is None
+                       else hop.to_local(x0_64) * hop.free_mask)
+            with span("krylov"):
+                res = cg(hop, f_slab, x0=x0_slab, M=M, tol=config.tolerance,
+                         maxiter=config.max_iterations,
+                         record_history=config.history)
+            niter, rnorm, conv = res.niter, res.residual_norm, res.converged
+            history = res.history
+            if conv:
+                # the backward-error gate of the single-device routes
+                with span("verify"):
+                    eta, ffrac = _backward_error(hop, f_slab, res.x)
+                eps_dt = float(torch.finfo(dtype).eps)
+                if eta > 100.0 * eps_dt + 100.0 * config.tolerance * ffrac:
+                    print_warning(f"sharded solution FAILED backward-error "
+                                  f"verification (eta={eta:.2e})")
+                    conv = False
+            u64 = hop.from_local(res.x)
+    solve_time = solve_phase.seconds
     energy = 0.5 * float(u64 @ f64)
     method = "cg(multigrid,sharded)" if use_mg else "cg(sharded)"
     if config.verbose:
@@ -773,9 +781,22 @@ def solve_system(problem: Problem,
     :class:`.parallel.sharding.DeviceMesh`.  DOF vectors are
     node-partitioned slabs, the operator the halo-exchange sharded matvec
     and the multigrid V-cycle runs its fine level sharded with replicated
-    coarse levels; one process drives every shard."""
+    coarse levels; one process drives every shard.
+
+    ``SolveResult.timings`` holds the host seconds of each phase and span
+    of the call by its path (``build_operator``, ``solve``,
+    ``solve/krylov``, ``solve/krylov/iter/vcycle/L0``, ``postprocess``,
+    ...; README.md lists them); under ``torch.profiler`` each span is also
+    a range of that name, inside a range ``solve_system`` that carries the
+    call's number."""
     timer = PhaseTimer()
-    config = config or _default_config()
+    with timer.call("solve_system"):
+        return _solve_system(problem, config or _default_config(), x0,
+                             devices, timer)
+
+
+def _solve_system(problem: Problem, config: SolverConfig, x0, devices,
+                  timer: PhaseTimer) -> SolveResult:
     if devices is not None:
         return _solve_system_sharded(problem, config, devices, timer, x0=x0)
     method = config.method
@@ -806,7 +827,6 @@ def solve_system(problem: Problem,
                    and (is_cm or config.tolerance < 1e-6))
 
     log("Solving linear system...")
-    t0 = time.perf_counter()
     history = None
     energy64 = None         # fp64 energy from the refined route
     u64 = None              # fp64 displacements from the refined route
@@ -820,105 +840,111 @@ def solve_system(problem: Problem,
         u_np = direct_solve(K, np.asarray(problem.f)[:n] * mask_np)
         return torch.as_tensor(u_np, dtype=dtype, device=device)
 
-    if method == "direct":
-        u = _host_direct()
-        niter, rnorm, conv = 1, 0.0, True
-    elif method == "cg" and (M_mg is not None or not config.verbose):
-        # plain PCG without the robust ladder's bookkeeping; multigrid
-        # takes this path whatever ``verbose`` says
-        M = M_mg if M_mg is not None else _build_preconditioner(op, config)
-        if want_refine:
-            if is_cm:                   # BellSystem.matvec64, fp64 scipy
-                system = op
-                mask64 = op.free_mask.double().cpu().numpy()
-                f64 = op.to_cm(problem.f) * mask64
-                x0_64 = (None if x0 is None
-                         else op.to_cm(np.asarray(x0)[:n]) * mask64)
-            else:
-                system = _HostRefineSystem(problem)
-                f64 = np.asarray(problem.f, np.float64)[:n] * system.mask
-                x0_64 = None
-                if x0 is not None:
-                    x0_64 = np.asarray(x0, np.float64)[:n] * system.mask
-
-            def _inner(rhs, left, tol_inner):
-                r = cg(op, rhs, M=M, tol=tol_inner, maxiter=left,
-                       record_history=config.history)
-                return r.x, r.niter, r.history
-
-            u64, niter, rnorm, conv, history, passes = _refined_generic(
-                system, _inner, f64, config.tolerance,
-                config.max_iterations, device, x0_64=x0_64,
-                record_history=config.history, dtype=dtype)
-            u = torch.as_tensor(u64, dtype=dtype, device=device)
-            energy64 = 0.5 * float(u64 @ f64)
-            _record_refine(timer, system)
-        else:
-            x0_dev = None
-            if x0 is not None:
-                x0_h = np.asarray(x0)[:n]
-                x0_dev = torch.as_tensor(
-                    op.to_cm(x0_h) if is_cm else x0_h, dtype=dtype,
-                    device=device) * op.free_mask
-            res = cg(op, f_dev, x0=x0_dev, M=M, tol=config.tolerance,
-                     maxiter=config.max_iterations,
-                     record_history=config.history)
-            u, niter, rnorm, conv = (res.x, res.niter, res.residual_norm,
-                                     res.converged)
-            history = res.history
-        if config.verbose:
-            from .fem.robust import print_convergence_report
-            print_convergence_report(config, "cg(multigrid)", niter, rnorm,
-                                     conv, history)
-        elif not conv:
-            print_warning(
-                f"Krylov solver did not converge after {niter} iterations "
-                f"(residual {rnorm:.3e}, target {config.tolerance:.1e})")
-    else:
-        # the robust ladder (fem/robust.py): the chosen method, plain CG
-        # at 10x the tolerance, then the host direct solve
-        from .fem.robust import _DirectFallback, solve_with_krylov
-        try:
+    with timer.phase("solve") as solve_phase:
+        if method == "direct":
+            u = _host_direct()
+            niter, rnorm, conv = 1, 0.0, True
+        elif method == "cg" and (M_mg is not None or not config.verbose):
+            # plain PCG without the robust ladder's bookkeeping; multigrid
+            # takes this path whatever ``verbose`` says
+            M = M_mg if M_mg is not None else _build_preconditioner(op, config)
             if want_refine:
-                # the ladder's inner solves inside the same float64-
-                # certified refinement as the plain route
-                system = _HostRefineSystem(problem)
-                f64 = np.asarray(problem.f, np.float64)[:n] * system.mask
-                meths = []
+                if is_cm:                   # BellSystem.matvec64, fp64 scipy
+                    system = op
+                    mask64 = op.free_mask.double().cpu().numpy()
+                    f64 = op.to_cm(problem.f) * mask64
+                    x0_64 = (None if x0 is None
+                             else op.to_cm(np.asarray(x0)[:n]) * mask64)
+                else:
+                    system = _HostRefineSystem(problem)
+                    f64 = np.asarray(problem.f, np.float64)[:n] * system.mask
+                    x0_64 = None
+                    if x0 is not None:
+                        x0_64 = np.asarray(x0, np.float64)[:n] * system.mask
 
                 def _inner(rhs, left, tol_inner):
-                    ui, ni, _rn, _cv, hist, m_ = solve_with_krylov(
-                        op, rhs, method,
-                        dataclasses.replace(config, tolerance=tol_inner,
-                                            max_iterations=left))
-                    meths.append(m_)
-                    return ui, ni, hist
+                    with span("krylov"):
+                        r = cg(op, rhs, M=M, tol=tol_inner, maxiter=left,
+                               record_history=config.history)
+                    return r.x, r.niter, r.history
 
                 u64, niter, rnorm, conv, history, passes = _refined_generic(
                     system, _inner, f64, config.tolerance,
-                    config.max_iterations, device,
+                    config.max_iterations, device, x0_64=x0_64,
                     record_history=config.history, dtype=dtype)
                 u = torch.as_tensor(u64, dtype=dtype, device=device)
                 energy64 = 0.5 * float(u64 @ f64)
-                method = (meths[-1] if meths else method) + "+refine"
                 _record_refine(timer, system)
             else:
-                u, niter, rnorm, conv, history, method = \
-                    solve_with_krylov(op, f_dev, method, config)
-        except _DirectFallback:
-            u = _host_direct()
-            niter, rnorm, conv, method = 1, 0.0, True, "direct(fallback)"
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    solve_time = time.perf_counter() - t0
-    timer.records["solve"] = PhaseRecord("solve", solve_time)
+                x0_dev = None
+                if x0 is not None:
+                    x0_h = np.asarray(x0)[:n]
+                    x0_dev = torch.as_tensor(
+                        op.to_cm(x0_h) if is_cm else x0_h, dtype=dtype,
+                        device=device) * op.free_mask
+                with span("krylov"):
+                    res = cg(op, f_dev, x0=x0_dev, M=M, tol=config.tolerance,
+                             maxiter=config.max_iterations,
+                             record_history=config.history)
+                u, niter, rnorm, conv = (res.x, res.niter, res.residual_norm,
+                                         res.converged)
+                history = res.history
+            if config.verbose:
+                from .fem.robust import print_convergence_report
+                print_convergence_report(config, "cg(multigrid)", niter, rnorm,
+                                         conv, history)
+            elif not conv:
+                print_warning(
+                    f"Krylov solver did not converge after {niter} iterations "
+                    f"(residual {rnorm:.3e}, target {config.tolerance:.1e})")
+        else:
+            # the robust ladder (fem/robust.py): the chosen method, plain CG
+            # at 10x the tolerance, then the host direct solve
+            from .fem.robust import _DirectFallback, solve_with_krylov
+            try:
+                if want_refine:
+                    # the ladder's inner solves inside the same float64-
+                    # certified refinement as the plain route
+                    system = _HostRefineSystem(problem)
+                    f64 = np.asarray(problem.f, np.float64)[:n] * system.mask
+                    meths = []
+
+                    def _inner(rhs, left, tol_inner):
+                        cfg = dataclasses.replace(
+                            config, tolerance=tol_inner, max_iterations=left)
+                        with span("krylov"):
+                            ui, ni, _rn, _cv, hist, m_ = solve_with_krylov(
+                                op, rhs, method, cfg)
+                        meths.append(m_)
+                        return ui, ni, hist
+
+                    u64, niter, rnorm, conv, history, passes = \
+                        _refined_generic(
+                            system, _inner, f64, config.tolerance,
+                            config.max_iterations, device,
+                            record_history=config.history, dtype=dtype)
+                    u = torch.as_tensor(u64, dtype=dtype, device=device)
+                    energy64 = 0.5 * float(u64 @ f64)
+                    method = (meths[-1] if meths else method) + "+refine"
+                    _record_refine(timer, system)
+                else:
+                    with span("krylov"):
+                        u, niter, rnorm, conv, history, method = \
+                            solve_with_krylov(op, f_dev, method, config)
+            except _DirectFallback:
+                u = _host_direct()
+                niter, rnorm, conv, method = 1, 0.0, True, "direct(fallback)"
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    solve_time = solve_phase.seconds
 
     if conv and not method.startswith("direct"):
         # backward-error verification with FRESH matvecs: the recurrence
         # residual can look converged while the iterate is wrong; the
         # normwise backward error catches that while tolerating the dtype's
         # attainable-accuracy floor and the requested Krylov tolerance
-        eta, ffrac = _backward_error(op, f_dev, u)
+        with timer.phase("verify"):
+            eta, ffrac = _backward_error(op, f_dev, u)
         eps_dt = float(torch.finfo(dtype).eps)
         eta_max = 100.0 * eps_dt + 100.0 * config.tolerance * ffrac
         if eta > eta_max:
@@ -946,10 +972,11 @@ def solve_system(problem: Problem,
     energy = energy64 if energy64 is not None else float(op.energy(u))
     if is_cm:
         # back to the public interleaved DOF layout for stresses and export
-        u = torch.as_tensor(op.to_il(u.cpu().numpy()), dtype=dtype,
-                            device=device)
-        if u64 is not None:
-            u64 = op.to_il(u64)
+        with timer.phase("relayout"):
+            u = torch.as_tensor(op.to_il(u.cpu().numpy()), dtype=dtype,
+                                device=device)
+            if u64 is not None:
+                u64 = op.to_il(u64)
     return _finish_result(problem, u, energy, method, niter, rnorm, conv,
                           solve_time, history, timer,
                           dmesh=getattr(op, "dmesh", None), u64=u64,
@@ -976,18 +1003,18 @@ def _finish_result(problem: Problem, u, energy: float, method: str,
         sigma_qp, avg, vm, max_vm, max_cell = stress_summary(
             dmesh, u, lam_e, mu_e, problem.quad_order)
 
+    with timer.phase("download"):
+        u_pub = u64 if u64 is not None else u.cpu().numpy()
+        sigma_qp, avg, vm = (t.cpu().numpy() for t in (sigma_qp, avg, vm))
+        max_vm, max_cell = float(max_vm), int(max_cell)
     log("Analysis complete")
     log(f"Deformation energy: {energy} J")
-    log(f"Maximum von Mises stress: {float(max_vm)} at cell "
-        f"{int(max_cell)}")
+    log(f"Maximum von Mises stress: {max_vm} at cell {max_cell}")
 
-    u_pub = u64 if u64 is not None else u.cpu().numpy()
     return SolveResult(
         u=np.asarray(u_pub)[: problem.n_dofs], energy=energy,
-        stress_qp=sigma_qp.cpu().numpy(),
-        stress_avg=avg.cpu().numpy(),
-        von_mises=vm.cpu().numpy(),
-        max_von_mises=float(max_vm), max_stress_cell=int(max_cell),
+        stress_qp=sigma_qp, stress_avg=avg, von_mises=vm,
+        max_von_mises=max_vm, max_stress_cell=max_cell,
         method=method, iterations=niter, residual_norm=rnorm,
         converged=conv, solve_time=solve_time, history=history,
         timings=timer.as_dict(), refinement_passes=refinement_passes)
@@ -1128,7 +1155,23 @@ def evaluate_design_batch(problem: Problem, densities: np.ndarray,
     -------
     energies [B, L], iterations [B, L], converged [B, L] (a lane that did
     not converge is flagged, and a warning names how many)
+
+    Under ``torch.profiler`` the call is a range ``evaluate_design_batch``
+    carrying the call's number, with spans ``sweep/prepare``,
+    ``sweep/kernel_build``, ``sweep/upload`` (the lanes' inputs to the
+    device), ``sweep/pcg`` (its ``iter`` and ``sync``) and
+    ``sweep/energy`` inside; jobs on worker threads (several cards) time
+    nothing.
     """
+    timer = PhaseTimer()
+    with timer.call("evaluate_design_batch"), timer.phase("sweep"):
+        return _evaluate_design_batch(problem, densities, load_cases,
+                                      material, tol, maxiter, dtype,
+                                      lane_chunk, devices)
+
+
+def _evaluate_design_batch(problem, densities, load_cases, material, tol,
+                           maxiter, dtype, lane_chunk, devices):
     from .parallel import sweep as sweep_mod
     from .parallel.sweep import (SweepKernel, sweep_all_pairs,
                                  sweep_compliance)
@@ -1153,11 +1196,12 @@ def evaluate_design_batch(problem: Problem, densities: np.ndarray,
     else:
         raise RuntimeError("assemble a material or pass material= before "
                            "evaluate_design_batch")
-    dens = np.asarray(densities, np.float64)
-    esc = np.asarray(material.youngs_modulus(dens)
-                     if material is not None else dens)
-    loads = np.asarray(problem.f[None] if load_cases is None
-                       else load_cases, np.float64)
+    with span("prepare"):
+        dens = np.asarray(densities, np.float64)
+        esc = np.asarray(material.youngs_modulus(dens)
+                         if material is not None else dens)
+        loads = np.asarray(problem.f[None] if load_cases is None
+                           else load_cases, np.float64)
     B, L = esc.shape[0], loads.shape[0]
     pairs = lane_chunk is None
     dev_mesh = None
@@ -1167,9 +1211,10 @@ def evaluate_design_batch(problem: Problem, densities: np.ndarray,
         n_dev = devices if isinstance(devices, int) else len(devices)
         dev_mesh = _device_mesh(problem, devices, data_parallel=n_dev)
         devices = dev_mesh.data_devices
-    kernels = {d: SweepKernel.build(problem.mesh, nu, mask, dtype=dtype,
-                                    full_ke=pairs, device=d)
-               for d in dict.fromkeys(devices)}
+    with span("kernel_build"):
+        kernels = {d: SweepKernel.build(problem.mesh, nu, mask, dtype=dtype,
+                                        full_ke=pairs, device=d)
+                   for d in dict.fromkeys(devices)}
 
     def split(block):
         """[(device, densities' scales, loads)], one per data shard."""

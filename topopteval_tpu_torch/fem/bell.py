@@ -52,6 +52,7 @@ from ..io.native import (blocks_from_g_native, bsr_rap_scalar_native,
 from ..mesh import Mesh, resolve_device
 from ..ops.bell import (BlockCSR, bell_matvec, csr_arrays, pad_rows,
                         sell_matvec)
+from ..utils.profiling import span, steps
 from .multigrid import MultigridPreconditioner
 
 _SKEL_VERSION = 2     # bump to invalidate on-disk skeleton caches
@@ -662,12 +663,20 @@ def build_bell_skeleton(mesh: Mesh,
     matrices for the numeric Galerkin RAP.  A flat numpy dict, .npz-able
     via :func:`save_skeleton`.
     """
-    with host_ftz():
-        return _build_bell_skeleton(mesh, free_mask, order, max_coarse_dofs)
+    with host_ftz(), steps() as step:
+        skel = _build_bell_skeleton(mesh, free_mask, order, max_coarse_dofs,
+                                    step)
+    skel["_phases"] = _phase_seconds(step)
+    return skel
+
+
+def _phase_seconds(step: steps) -> dict:
+    """A build's seconds by phase (the spans of its steps), rounded."""
+    return {k: round(v, 3) for k, v in step.seconds.items() if "/" not in k}
 
 
 def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
-                         max_coarse_dofs: int) -> dict:
+                         max_coarse_dofs: int, step: steps) -> dict:
     import scipy.sparse as sp
 
     from ..ops.elements import element_tables
@@ -675,11 +684,6 @@ def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
                             propagate_fixed)
 
     t_all = time.perf_counter()
-    phases = {}
-
-    def tick(label, t0):
-        phases[label] = round(time.perf_counter() - t0, 3)
-        return time.perf_counter()
 
     C, k = mesh.conn.shape
     N = mesh.n_nodes
@@ -688,7 +692,7 @@ def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
     mask_il = np.asarray(free_mask, np.float64).reshape(-1)
 
     # --- raw contribution structure + RCM ------------------------------------
-    t0 = time.perf_counter()
+    step("structure_sort")
     conn64 = np.asarray(mesh.conn, np.int64)
     r_raw = np.repeat(conn64, k, axis=1).reshape(-1)       # [C*k*k]
     c_raw = np.tile(conn64, (1, k)).reshape(-1)
@@ -713,7 +717,7 @@ def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
     rank_raw = np.empty(nnz_raw, np.int64)
     rank_raw[order0] = rank_s
     del key0, order0, key_s, newg, grp_s, rank_s, starts0
-    t0 = tick("structure_sort", t0)
+    step("rcm_permute")
 
     perm = rcm_order(rows_d0, cols_d0, N)
     inv = np.empty_like(perm)
@@ -728,7 +732,7 @@ def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
     starts_new = np.zeros(nnzb, np.int64)
     np.cumsum(len_new[:-1], out=starts_new[1:])
     mask_p = mask_il.reshape(N, 3)[perm].reshape(-1)
-    t0 = tick("rcm_permute", t0)
+    step("csr_structure")
 
     # --- sorted contribution list + gradient-factorized element data ---------
     # Every contribution block factorizes through the physical gradients
@@ -744,7 +748,7 @@ def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
     ij_sorted[base2] = np.tile(np.arange(k * k, dtype=np.uint16), C)
     grp_indptr = np.append(starts_new, nnz_raw).astype(np.int64)
     del base2
-    t0 = tick("csr_structure", t0)
+    step("unit_assembly")
 
     _, dN_t, w_t = element_tables(
         mesh.element_type, 1 if mesh.element_type == "tet4" else order)
@@ -756,7 +760,7 @@ def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
     if not element_gradients_native(mesh.coords, mesh.conn, dN_t, w_t,
                                     g_el, wdet_el):
         _host_gradients(mesh, dN_t, w_t, g_el, wdet_el)
-    t0 = tick("unit_assembly", t0)
+    step("unit_operator")
 
     sel = rows_d == cols_d
     bsr_indptr = np.zeros(N + 1, np.int64)
@@ -782,7 +786,7 @@ def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
     A_unit = sp.bsr_matrix((_skel_blocks(skel, ones, ones).reshape(-1, 3, 3),
                             cols_d.astype(np.int64), bsr_indptr),
                            shape=(3 * N, 3 * N))
-    t0 = tick("unit_operator", t0)
+    step("level_chain")
 
     # --- voxel lattice dims ---------------------------------------------------
     lo, hi = mesh.bounding_box()
@@ -905,9 +909,8 @@ def _build_bell_skeleton(mesh: Mesh, free_mask, order: int,
         A_cur = A_next
         mask_cur = mask_next
         n_cur = n_next
-    t0 = tick("level_chain", t0)
+    step.end()
 
-    skel["_phases"] = phases
     skel["skeleton_seconds"] = np.float64(
         round(time.perf_counter() - t_all, 3))
     return skel
@@ -993,20 +996,19 @@ def build_bell_values(skel: dict, lam, mu, dtype=torch.float32,
     ``info["host_arrays"]`` holds the host arrays :func:`save_hierarchy`
     writes.  Raises :class:`SkeletonMismatch` if a coarse pattern leaves
     the skeleton's."""
-    with host_ftz():
-        return _build_bell_values(skel, lam, mu, dtype, device)
+    with host_ftz(), steps() as step:
+        system, mg, info = _build_bell_values(skel, lam, mu, dtype, device,
+                                              step)
+    info["phases"] = _phase_seconds(step)
+    return system, mg, info
 
 
-def _build_bell_values(skel: dict, lam, mu, dtype, device
+def _build_bell_values(skel: dict, lam, mu, dtype, device, step: steps
                        ) -> Tuple[BellSystem, BellMG, dict]:
     import scipy.sparse as sp
 
     t_all = time.perf_counter()
-    info = {"phases": {}}
-
-    def tick(label, t0):
-        info["phases"][label] = round(time.perf_counter() - t0, 3)
-        return time.perf_counter()
+    info = {}
 
     np_dt = _np_dtype(dtype)
     N = int(skel["n_nodes"])
@@ -1020,9 +1022,9 @@ def _build_bell_values(skel: dict, lam, mu, dtype, device
     cols_d = skel["cols_d"]
 
     # --- re-assembly from the gradient factorization --------------------------
-    t0 = time.perf_counter()
+    step("values_matvec")
     blocks = _skel_blocks(skel, lam_e, mu_e)
-    t0 = tick("values_matvec", t0)
+    step("fine_binv_lam_max")
 
     # --- fine operator (hi/lo split for fp32) ---------------------------------
     n_rows_p = pad_rows(N)
@@ -1053,7 +1055,7 @@ def _build_bell_values(skel: dict, lam, mu, dtype, device
     host["hb_indptr"] = A_bsr.indptr
     host["hb_indices"] = A_bsr.indices
     host["hb_data"] = A_bsr.data.reshape(-1, 9)
-    t0 = tick("fine_binv_lam_max", t0)
+    step("rap_chain")
 
     # --- numeric RAP chain on the frozen pattern (blockwise products) --------
     A_cur = A_bsr
@@ -1120,16 +1122,16 @@ def _build_bell_values(skel: dict, lam, mu, dtype, device
         A_cur = A_next_b
         mask_cur = mask_next
         n_cur = n_next
-    t0 = tick("rap_chain", t0)
+    step("coarse_pinv")
 
     host["coarse_inv"] = _coarse_pinv_cm(A_cur.toarray(), mask_cur, n_cur,
                                          pad_rows(n_cur), dtype)
-    t0 = tick("coarse_pinv", t0)
+    step("upload")
 
     system, mg = _from_host(host, dtype, device)
     if system.device.type == "cuda":
         torch.cuda.synchronize(system.device)
-    t0 = tick("upload", t0)
+    step.end()
     info["host_arrays"] = host
     info["fine_transfer"] = system.fine_transfer
     info["route"] = "skeleton"
@@ -1192,24 +1194,26 @@ def _build_bell_multigrid_legacy(
     ``_build_bell_multigrid_legacy``, same arithmetic, into the port's
     block-CSR layout).  ``info["phases"]`` holds the build seconds by
     phase, ``info["fine_transfer"]`` the fine-level P triplets."""
-    with host_ftz():
-        return _build_legacy(mesh, lam, mu, free_mask, dtype,
-                             max_coarse_dofs, order, device)
+    with host_ftz(), steps() as step:
+        system, mg, info = _build_legacy(mesh, lam, mu, free_mask, dtype,
+                                         max_coarse_dofs, order, device,
+                                         step)
+    info["phases"] = _phase_seconds(step)
+    info["phases"]["rap_chain_sub"] = {
+        k.split("/", 1)[1]: round(v, 3) for k, v in step.seconds.items()
+        if k.startswith("rap_chain/")}
+    return system, mg, info
 
 
 def _build_legacy(mesh, lam, mu, free_mask, dtype, max_coarse_dofs, order,
-                  device):
+                  device, step: steps):
     import scipy.sparse as sp
 
     from .multigrid import (build_transfer_tables, build_voxel_transfer,
                             propagate_fixed)
 
     t_all = time.perf_counter()
-    info = {"phases": {}}
-
-    def tick(label, t0):
-        info["phases"][label] = round(time.perf_counter() - t0, 3)
-        return time.perf_counter()
+    info = {}
 
     np_dt = _np_dtype(dtype)
     C = mesh.n_cells
@@ -1221,14 +1225,14 @@ def _build_legacy(mesh, lam, mu, free_mask, dtype, max_coarse_dofs, order,
     mask_il = np.asarray(free_mask, np.float64).reshape(-1)
 
     # --- fine assembly + RCM -------------------------------------------------
-    t0 = time.perf_counter()
+    step("assemble_triplets")
     rows, cols, blocks = assemble_bsr_triplets(mesh, lam_e, mu_e, order)
-    t0 = tick("assemble_triplets", t0)
+    step("rcm_permute")
     perm = rcm_order(rows, cols, N)
     rows, cols, blocks = _permute_triplets(rows, cols, blocks, perm)
     mask_p = mask_il.reshape(N, 3)[perm].reshape(-1)
     coords_p = np.asarray(mesh.coords, np.float64)[perm]
-    t0 = tick("rcm_permute", t0)
+    step("fine_pack")
 
     # the system operator keeps the float64 values as an fp32 hi/lo pair;
     # the V-cycle's copy of level 0 takes the hi plane only
@@ -1248,13 +1252,13 @@ def _build_legacy(mesh, lam, mu, free_mask, dtype, max_coarse_dofs, order,
         host["fine_vals_lo"] = (vals - hi).astype(np.float32)
     else:
         host["L0_vals"] = vals
-    t0 = tick("fine_pack", t0)
+    step("fine_binv")
     diag = _diag_blocks(rows, cols, blocks, N)
     binv = _block_jacobi_inv(diag, mask_p.reshape(N, 3))
     host["L0_binv9"] = _binv9_cm(binv, n_rows_p, dtype)
-    t0 = tick("fine_binv", t0)
+    step("fine_lam_max")
     host["L0_lam_max"] = _power_lambda_max(A_bsr, binv, mask_p)
-    t0 = tick("fine_lam_max", t0)
+    step("rap_chain")
 
     # --- voxel lattice dims (the skeleton build's policy) --------------------
     lo, hi_box = mesh.bounding_box()
@@ -1286,122 +1290,111 @@ def _build_legacy(mesh, lam, mu, free_mask, dtype, max_coarse_dofs, order,
     n_cur = N
     level_nodes = [N]
     lattice_dims = (vx, vy, vz)
-    rap_sub = dict.fromkeys(("tables", "rap_scipy", "reorder", "pack",
-                             "binv_lam_max"), 0.0)
-    ts = time.perf_counter()
+    # the chain's phases, each summed over the levels
+    with steps() as sub:
+        for li in range(L):
+            sub("tables")
+            if li == 0:
+                parents, weights, _ = build_voxel_transfer(
+                    coords_p, lo, hi_box, lattice_dims)
+            else:
+                cnx, cny, cnz = lattice_dims
+                parents, weights, _ = build_transfer_tables(cnx, cny, cnz)
+                lattice_dims = (cnx // 2, cny // 2, cnz // 2)
+                # rows of these tables are in the previous level's lattice
+                # order; remap them to its final order
+                parents = parents[prev_lattice_perm]
+                weights = weights[prev_lattice_perm]
+            cnx2, cny2, cnz2 = lattice_dims if li else (vx, vy, vz)
+            n_next = (cnx2 + 1) * (cny2 + 1) * (cnz2 + 1)
 
-    def sub(label):
-        nonlocal ts
-        now = time.perf_counter()
-        rap_sub[label] += now - ts
-        ts = now
+            live = (weights > 0) & (parents < n_next)
+            p_rows = np.repeat(np.arange(parents.shape[0]),
+                               parents.shape[1]).reshape(parents.shape)[live]
+            p_cols = parents[live].astype(np.int64)
+            p_w = weights[live]
+            fixed_c = propagate_fixed(parents, weights,
+                                      mask_cur.reshape(-1, 3) == 0, n_next)
+            mask_next_lat = np.where(fixed_c, 0.0, 1.0).reshape(-1)
+            sub("rap_scipy")
 
-    for li in range(L):
-        ts = time.perf_counter()
-        if li == 0:
-            parents, weights, _ = build_voxel_transfer(
-                coords_p, lo, hi_box, lattice_dims)
-        else:
-            cnx, cny, cnz = lattice_dims
-            parents, weights, _ = build_transfer_tables(cnx, cny, cnz)
-            lattice_dims = (cnx // 2, cny // 2, cnz // 2)
-            # rows of these tables are in the previous level's lattice
-            # order; remap them to its final order
-            parents = parents[prev_lattice_perm]
-            weights = weights[prev_lattice_perm]
-        cnx2, cny2, cnz2 = lattice_dims if li else (vx, vy, vz)
-        n_next = (cnx2 + 1) * (cny2 + 1) * (cnz2 + 1)
+            # Galerkin RAP on the host (scipy, scalar CSR)
+            P_node = sp.coo_matrix((p_w, (p_rows, p_cols)),
+                                   shape=(n_cur, n_next)).tocsr()
+            P_dof = sp.kron(P_node, sp.eye(3), format="csr")
+            A_next = (P_dof.T @ A_cur @ P_dof).tocsr()
+            sub("reorder")
+            if A_next.nnz:
+                # drop entries below 1e-14 of the largest diagonal
+                tol = 1e-14 * np.abs(A_next.diagonal()).max()
+                A_next.data[np.abs(A_next.data) < tol] = 0.0
+                A_next.eliminate_zeros()
+            # empty-diagonal dofs (voxel corners supporting no fine node) fixed
+            d = A_next.diagonal()
+            mask_next_lat[d <= 0] = 0.0
 
-        live = (weights > 0) & (parents < n_next)
-        p_rows = np.repeat(np.arange(parents.shape[0]),
-                           parents.shape[1]).reshape(parents.shape)[live]
-        p_cols = parents[live].astype(np.int64)
-        p_w = weights[live]
-        fixed_c = propagate_fixed(parents, weights,
-                                  mask_cur.reshape(-1, 3) == 0, n_next)
-        mask_next_lat = np.where(fixed_c, 0.0, 1.0).reshape(-1)
-        sub("tables")
+            # coarse nodes numbered by their first fine child, so both
+            # transfers gather from nearby rows (this order fixes the V-cycle)
+            r_n, c_n, b_n = _scipy_to_triplets(A_next)
+            keys = np.full(n_next, np.iinfo(np.int64).max)
+            np.minimum.at(keys, p_cols, p_rows)
+            perm_c = np.argsort(keys, kind="stable")
+            inv_c = np.empty_like(perm_c)
+            inv_c[perm_c] = np.arange(n_next)
+            r_n, c_n, b_n = _permute_triplets(r_n, c_n, b_n, perm_c)
+            mask_next = mask_next_lat.reshape(n_next, 3)[perm_c].reshape(-1)
+            p_cols = inv_c[p_cols]
+            prev_lattice_perm = perm_c
+            sub("pack")
 
-        # Galerkin RAP on the host (scipy, scalar CSR)
-        P_node = sp.coo_matrix((p_w, (p_rows, p_cols)),
-                               shape=(n_cur, n_next)).tocsr()
-        P_dof = sp.kron(P_node, sp.eye(3), format="csr")
-        A_next = (P_dof.T @ A_cur @ P_dof).tocsr()
-        sub("rap_scipy")
-        if A_next.nnz:
-            # drop entries below 1e-14 of the largest diagonal
-            tol = 1e-14 * np.abs(A_next.diagonal()).max()
-            A_next.data[np.abs(A_next.data) < tol] = 0.0
-            A_next.eliminate_zeros()
-        # empty-diagonal dofs (voxel corners supporting no fine node) fixed
-        d = A_next.diagonal()
-        mask_next_lat[d <= 0] = 0.0
+            if li == 0:
+                # raw fine-level P triplets (rows: fine RCM positions, cols:
+                # level-1 positions), for a sharded V-cycle's own transfer
+                host.update({"ft_rows": p_rows.astype(np.int32),
+                             "ft_cols": p_cols.astype(np.int32),
+                             "ft_w": p_w.astype(np.float64),
+                             "ft_nc": np.int64(n_next)})
+            nf_p, nc_p = pad_rows(n_cur), pad_rows(n_next)
+            P_fin = sp.coo_matrix((p_w, (p_rows, p_cols)),
+                                  shape=(n_cur, n_next)).tocsr()
+            P_fin.sort_indices()
+            PT_fin = P_fin.T.tocsr()
+            PT_fin.sort_indices()
+            host[f"L{li}_p_indptr"] = _pad_indptr(P_fin.indptr, nf_p)
+            host[f"L{li}_p_cols"] = P_fin.indices.astype(np.int32)
+            host[f"L{li}_p_w"] = P_fin.data.astype(np_dt)
+            host[f"L{li}_r_indptr"] = _pad_indptr(PT_fin.indptr, nc_p)
+            host[f"L{li}_r_cols"] = PT_fin.indices.astype(np.int32)
+            host[f"L{li}_r_w"] = PT_fin.data.astype(np_dt)
+            A_next_p = _triplets_to_scipy_bsr(r_n, c_n, b_n, n_next)
+            sub("binv_lam_max")
 
-        # coarse nodes numbered by their first fine child, so both
-        # transfers gather from nearby rows (this order fixes the V-cycle)
-        r_n, c_n, b_n = _scipy_to_triplets(A_next)
-        keys = np.full(n_next, np.iinfo(np.int64).max)
-        np.minimum.at(keys, p_cols, p_rows)
-        perm_c = np.argsort(keys, kind="stable")
-        inv_c = np.empty_like(perm_c)
-        inv_c[perm_c] = np.arange(n_next)
-        r_n, c_n, b_n = _permute_triplets(r_n, c_n, b_n, perm_c)
-        mask_next = mask_next_lat.reshape(n_next, 3)[perm_c].reshape(-1)
-        p_cols = inv_c[p_cols]
-        prev_lattice_perm = perm_c
-        sub("reorder")
-
-        if li == 0:
-            # raw fine-level P triplets (rows: fine RCM positions, cols:
-            # level-1 positions), for a sharded V-cycle's own transfer
-            host.update({"ft_rows": p_rows.astype(np.int32),
-                         "ft_cols": p_cols.astype(np.int32),
-                         "ft_w": p_w.astype(np.float64),
-                         "ft_nc": np.int64(n_next)})
-        nf_p, nc_p = pad_rows(n_cur), pad_rows(n_next)
-        P_fin = sp.coo_matrix((p_w, (p_rows, p_cols)),
-                              shape=(n_cur, n_next)).tocsr()
-        P_fin.sort_indices()
-        PT_fin = P_fin.T.tocsr()
-        PT_fin.sort_indices()
-        host[f"L{li}_p_indptr"] = _pad_indptr(P_fin.indptr, nf_p)
-        host[f"L{li}_p_cols"] = P_fin.indices.astype(np.int32)
-        host[f"L{li}_p_w"] = P_fin.data.astype(np_dt)
-        host[f"L{li}_r_indptr"] = _pad_indptr(PT_fin.indptr, nc_p)
-        host[f"L{li}_r_cols"] = PT_fin.indices.astype(np.int32)
-        host[f"L{li}_r_w"] = PT_fin.data.astype(np_dt)
-        A_next_p = _triplets_to_scipy_bsr(r_n, c_n, b_n, n_next)
-        sub("pack")
-
-        diag_c = _diag_blocks(r_n, c_n, b_n, n_next)
-        binv_c = _block_jacobi_inv(diag_c, mask_next.reshape(n_next, 3))
-        if li + 1 < L:              # a smoothed level of the V-cycle
-            i = li + 1
-            host[f"L{i}_indptr"] = _pad_indptr(A_next_p.indptr, nc_p)
-            host[f"L{i}_cols"] = c_n.astype(np.int32)
-            host[f"L{i}_vals"] = b_n.reshape(-1, 9).astype(np_dt)
-            host[f"L{i}_mask"] = _mask_cm_flat(mask_next, nc_p, dtype)
-            host[f"L{i}_binv9"] = _binv9_cm(binv_c, nc_p, dtype)
-            # Chebyshev bounds below the coarsest level only
-            host[f"L{i}_lam_max"] = _power_lambda_max(A_next_p, binv_c,
-                                                      mask_next)
-        A_cur = A_next_p.tocsr()
-        mask_cur = mask_next
-        n_cur = n_next
-        level_nodes.append(n_next)
-        sub("binv_lam_max")
-    t0 = tick("rap_chain", t0)
-    info["phases"]["rap_chain_sub"] = {k: round(v, 3)
-                                       for k, v in rap_sub.items()}
+            diag_c = _diag_blocks(r_n, c_n, b_n, n_next)
+            binv_c = _block_jacobi_inv(diag_c, mask_next.reshape(n_next, 3))
+            if li + 1 < L:              # a smoothed level of the V-cycle
+                i = li + 1
+                host[f"L{i}_indptr"] = _pad_indptr(A_next_p.indptr, nc_p)
+                host[f"L{i}_cols"] = c_n.astype(np.int32)
+                host[f"L{i}_vals"] = b_n.reshape(-1, 9).astype(np_dt)
+                host[f"L{i}_mask"] = _mask_cm_flat(mask_next, nc_p, dtype)
+                host[f"L{i}_binv9"] = _binv9_cm(binv_c, nc_p, dtype)
+                # Chebyshev bounds below the coarsest level only
+                host[f"L{i}_lam_max"] = _power_lambda_max(A_next_p, binv_c,
+                                                          mask_next)
+            A_cur = A_next_p.tocsr()
+            mask_cur = mask_next
+            n_cur = n_next
+            level_nodes.append(n_next)
+    step("coarse_pinv")
 
     host["coarse_inv"] = _coarse_pinv_cm(A_cur.toarray(), mask_cur, n_cur,
                                          pad_rows(n_cur), dtype)
-    t0 = tick("coarse_pinv", t0)
+    step("upload")
 
     system, mg = _from_host(host, dtype, device)
     if system.device.type == "cuda":
         torch.cuda.synchronize(system.device)
-    t0 = tick("upload", t0)
+    step.end()
     info.update({
         "host_arrays": host, "route": "monolithic",
         "fine_transfer": system.fine_transfer,
@@ -1451,37 +1444,39 @@ def build_bell_multigrid(
     if lam_e.min() <= 0 or mu_e.min() <= 0 or skel_bytes > budget:
         return monolithic()
     try:
-        skeleton = None
-        ram_key = None
-        if skeleton_cache is not None:
-            # in-process RAM cache (one entry): the density-swap workflow
-            ram_key = skeleton_cache_key(mesh, free_mask, order,
-                                         max_coarse_dofs)
-            skeleton = skeleton_cache.get(ram_key)
-        skeleton_cached = skeleton is not None
-        if skeleton is None and skeleton_path is not None \
-                and os.path.exists(skeleton_path):
-            try:
-                t_l = time.perf_counter()
-                skeleton = load_skeleton(skeleton_path)
-                skeleton_cached = True
-                log(f"hierarchy skeleton loaded from cache "
-                    f"({time.perf_counter() - t_l:.1f}s): {skeleton_path}")
-            except (OSError, ValueError, KeyError) as e:   # stale/corrupt
-                print_warning(f"skeleton cache load failed ({e}); "
-                              "rebuilding")
-        if skeleton is None:
-            skeleton = build_bell_skeleton(mesh, free_mask=free_mask,
-                                           order=order,
-                                           max_coarse_dofs=max_coarse_dofs)
-            if skeleton_path is not None:
+        # the RAM cache's key hashes the mesh: a span of its own
+        with span("skeleton"):
+            skeleton = None
+            ram_key = None
+            if skeleton_cache is not None:
+                # in-process RAM cache (one entry): the density-swap workflow
+                ram_key = skeleton_cache_key(mesh, free_mask, order,
+                                             max_coarse_dofs)
+                skeleton = skeleton_cache.get(ram_key)
+            skeleton_cached = skeleton is not None
+            if skeleton is None and skeleton_path is not None \
+                    and os.path.exists(skeleton_path):
                 try:
-                    save_skeleton(skeleton_path, skeleton)
-                except OSError as e:
-                    print_warning(f"skeleton cache save failed: {e}")
-        if ram_key is not None and ram_key not in skeleton_cache:
-            skeleton_cache.clear()          # hold at most ONE skeleton
-            skeleton_cache[ram_key] = skeleton
+                    t_l = time.perf_counter()
+                    skeleton = load_skeleton(skeleton_path)
+                    skeleton_cached = True
+                    log(f"hierarchy skeleton loaded from cache "
+                        f"({time.perf_counter() - t_l:.1f}s): {skeleton_path}")
+                except (OSError, ValueError, KeyError) as e:   # stale/corrupt
+                    print_warning(f"skeleton cache load failed ({e}); "
+                                  "rebuilding")
+            if skeleton is None:
+                skeleton = build_bell_skeleton(mesh, free_mask=free_mask,
+                                               order=order,
+                                               max_coarse_dofs=max_coarse_dofs)
+                if skeleton_path is not None:
+                    try:
+                        save_skeleton(skeleton_path, skeleton)
+                    except OSError as e:
+                        print_warning(f"skeleton cache save failed: {e}")
+            if ram_key is not None and ram_key not in skeleton_cache:
+                skeleton_cache.clear()          # hold at most ONE skeleton
+                skeleton_cache[ram_key] = skeleton
         system, mg, info = build_bell_values(skeleton, lam_e, mu_e,
                                              dtype=dtype, device=device)
     except SkeletonMismatch as e:

@@ -37,6 +37,7 @@ from ..mesh import Mesh, resolve_device
 from ..grid import _TET_SPLIT, generate_grid_hex, generate_grid_tet
 from ..ops.ell import pack_ell_rows, sell_matvec_window
 from ..ops.stencil import CORNER_OFFSETS
+from ..utils.profiling import span, steps
 from .host_operator import HostFineOperator, block_power_iteration
 from .operator import StiffnessOperator, assemble_scipy
 from .solvers import block_jacobi_preconditioner
@@ -500,22 +501,32 @@ class MultigridPreconditioner:
             rho_old = rho
         return z2d
 
-    def _vcycle(self, lvl: int, r2d):
+    def _vcycle(self, lvl: int, r2d, top: int = 0):
+        """The V-cycle from level ``lvl`` down.  Each level's own work
+        (down: smoothing, residual, restriction; up: prolongation,
+        smoothing) is a span ``L<lvl + top>``, the dense coarse solve a
+        span ``coarse``; the recursion stays outside the level's span, so
+        the names stay flat and each span's seconds are its own."""
         if lvl == len(self.levels):
-            return (self.coarse_inv @ r2d.reshape(-1)).reshape(r2d.shape)
+            with span("coarse"):
+                return (self.coarse_inv @ r2d.reshape(-1)).reshape(r2d.shape)
         L = self.levels[lvl]
-        z = self._smooth(L, r2d, None, self.nu)
-        res = r2d - self._amul(L, z)
-        m_f = self._mask(L)
-        rc = L.transfer.restrict(res * m_f)
-        if lvl + 1 < len(self.levels):
-            rc = rc * self._mask(self.levels[lvl + 1])
-        zc = self._vcycle(lvl + 1, rc)
-        z = z + L.transfer.prolong(zc) * m_f
-        return self._smooth(L, r2d, z, self.nu)
+        name = f"L{lvl + top}"
+        with span(name):
+            z = self._smooth(L, r2d, None, self.nu)
+            res = r2d - self._amul(L, z)
+            m_f = self._mask(L)
+            rc = L.transfer.restrict(res * m_f)
+            if lvl + 1 < len(self.levels):
+                rc = rc * self._mask(self.levels[lvl + 1])
+        zc = self._vcycle(lvl + 1, rc, top)
+        with span(name):
+            z = z + L.transfer.prolong(zc) * m_f
+            return self._smooth(L, r2d, z, self.nu)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
-        return self._vcycle(0, self._shape(r)).reshape(r.shape)
+        with span("vcycle"):
+            return self._vcycle(0, self._shape(r)).reshape(r.shape)
 
 
 def _per_element_material(lam, mu, esc, element: str):
@@ -849,22 +860,27 @@ def build_unstructured_multigrid(
     embedded voxel lattice (:class:`.ell.ELLBlockOperator`).  ``lam``/``mu``
     may be per-element arrays (SIMP).  Every level smooths with Chebyshev
     over its measured lambda_max(B^-1 A).  ``info``, when given, receives
-    the lattice, the level sizes and the build seconds by phase.
+    the lattice, the level sizes and the build seconds by phase (the
+    seconds of its ``steps``).
 
     Returns (fine operator, MultigridPreconditioner), a drop-in ``M`` for
     :func:`..fem.solvers.cg`.
     """
+    info = {} if info is None else info
+    with steps() as step:
+        out = _build_unstructured(mesh, lam, mu, free_mask, dtype,
+                                  max_coarse_dofs, device, info, step)
+    info["phases"] = {k: v for k, v in step.seconds.items() if "/" not in k}
+    return out
+
+
+def _build_unstructured(mesh: Mesh, lam, mu, free_mask, dtype,
+                        max_coarse_dofs: int, device, info: dict,
+                        step: steps):
     import time as _time
 
     device = resolve_device(device)
-    info = {} if info is None else info
-    phases = info.setdefault("phases", {})
     t_start = _time.perf_counter()
-
-    def tick(label, t0):
-        now = _time.perf_counter()
-        phases[label] = now - t0
-        return now
 
     C = mesh.n_cells
     lam_e = np.broadcast_to(np.asarray(lam, np.float64), (C,))
@@ -874,7 +890,7 @@ def build_unstructured_multigrid(
     free_np = np.asarray(free_mask, np.float64).reshape(-1)
 
     # --- fine level ---------------------------------------------------------
-    t0 = _time.perf_counter()
+    step("fine_op_and_blocks")
     op = StiffnessOperator.build(
         mesh.device(dtype=dtype, device=device), np.array(lam_e),
         np.array(mu_e),
@@ -883,7 +899,7 @@ def build_unstructured_multigrid(
     host_fine = HostFineOperator(mesh, lam_e, mu_e, free_np, _VOXEL_ORDER)
     binv_np = _host_block_jacobi(host_fine.node_blocks(), free_np)
     binv_fine = torch.as_tensor(binv_np, dtype=dtype, device=device)
-    t0 = tick("fine_op_and_blocks", t0)
+    step("transfer_and_fine_lambda_max")
 
     # --- voxel lattice dims -------------------------------------------------
     lo, hi = mesh.bounding_box()
@@ -927,7 +943,7 @@ def build_unstructured_multigrid(
     lam_max_fine = host_fine.power_lambda_max(binv_np)
     del host_fine, binv_np
     levels = [MGLevel(op, binv_fine, transfer0, lam_max=lam_max_fine)]
-    t0 = tick("transfer_and_fine_lambda_max", t0)
+    step("probing")
 
     # coupling reach on the lattice: an element spanning k voxels along an
     # axis links corners k+1 apart; reach 2 covers elements up to one
@@ -943,7 +959,7 @@ def build_unstructured_multigrid(
     ell, mask_c = galerkin_voxel_operator(op, transfer0, mask_c,
                                           (vx, vy, vz), reach=reach,
                                           dtype=dtype)
-    t0 = tick("probing", t0)
+    step("coarse_levels")
 
     # --- Galerkin (RAP) coarser levels ---------------------------------------
     cur_dims = (vx, vy, vz)
@@ -969,7 +985,7 @@ def build_unstructured_multigrid(
             widths.append(ell.S)
         else:
             levels.append(MGLevel(ell, binv, None, lam_max=lam_max_l))
-    t0 = tick("coarse_levels", t0)
+    step("coarsest_pinv")
 
     # --- coarsest level: eigendecomposition pseudo-inverse -------------------
     # On porous/optimized geometry a voxel can contain fewer fine nodes
@@ -986,7 +1002,7 @@ def build_unstructured_multigrid(
     m_c = np.asarray(mask_c, np.float64).reshape(-1)
     coarse_inv = torch.as_tensor(m_c[:, None] * inv_np * m_c[None, :],
                                  dtype=dtype, device=device)
-    t0 = tick("coarsest_pinv", t0)
+    step.end()
 
     # the Jacobi damping the JAX package records beside its Chebyshev
     # smoother (no level smooths with it: each has its lambda_max)

@@ -9,7 +9,11 @@ with ``atol = rtol = tol`` (RobustSolver.jl:294-300), on the recurrence
 residual (CG, BiCGSTAB), on MINRES's ``phibar`` and on GMRES's
 preconditioned residual estimate.  Dots accumulate in float64 whatever
 the working dtype.  Each loop runs eagerly on the operator's device and
-reads its stopping scalar back to the host once an iteration.
+reads its stopping scalar back to the host once an iteration.  ``cg``
+times its steps as spans of the current timer (``utils.profiling``):
+``iter`` an iteration, inside it ``matvec``, ``update`` (dots and
+axpys) and ``sync`` (the ‖r‖ readback); a multigrid preconditioner
+adds its own ``vcycle``.
 ``A`` is anything with ``.matvec`` or a dense 2-D matrix.
 """
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.elements import _inv3x3
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,29 +98,37 @@ def cg(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, M=None,
     (parallel/collectives.SlabVector, with ``A`` and ``M`` sharded)."""
     A = _wrap_operator(A)
     x = _zeros_like(b) if x0 is None else x0.clone()
-    r = b - A.matvec(x)
+    with span("matvec"):
+        r = b - A.matvec(x)
     z = apply_preconditioner(M, r)
     p = z.clone()
     rz = _dot(r, z)
-    rnorm = float(torch.sqrt(_dot(r, r)))
+    with span("sync"):
+        rnorm = float(torch.sqrt(_dot(r, r)))
     eps = tol + tol * rnorm        # Krylov.jl: atol + rtol*‖r0‖
     hist = [rnorm] if record_history else None
     it = 0
     while it < maxiter and rnorm > eps:
-        Ap = A.matvec(p)
-        pAp = _dot(p, Ap)
-        alpha = (rz / torch.where(pAp == 0, 1.0, pAp)).to(b.dtype)
-        x.addcmul_(alpha, p)
-        r.addcmul_(alpha, Ap, value=-1.0)
-        z = apply_preconditioner(M, r)
-        rz_new = _dot(r, z)
-        beta = (rz_new / torch.where(rz == 0, 1.0, rz)).to(b.dtype)
-        p.mul_(beta).add_(z)
-        rz = rz_new
-        it += 1
-        rnorm = float(torch.sqrt(_dot(r, r)))
-        if record_history:
-            hist.append(rnorm)
+        with span("iter"):
+            with span("matvec"):
+                Ap = A.matvec(p)
+            with span("update"):
+                pAp = _dot(p, Ap)
+                alpha = (rz / torch.where(pAp == 0, 1.0, pAp)).to(b.dtype)
+                x.addcmul_(alpha, p)
+                r.addcmul_(alpha, Ap, value=-1.0)
+            z = apply_preconditioner(M, r)
+            with span("update"):
+                rz_new = _dot(r, z)
+                beta = (rz_new / torch.where(rz == 0, 1.0, rz)).to(b.dtype)
+                p.mul_(beta).add_(z)
+                rz = rz_new
+                rnorm_dev = torch.sqrt(_dot(r, r))
+            it += 1
+            with span("sync"):
+                rnorm = float(rnorm_dev)
+            if record_history:
+                hist.append(rnorm)
     return KrylovResult(x, it, rnorm, rnorm <= eps,
                         np.asarray(hist) if record_history else None)
 

@@ -31,6 +31,7 @@ import torch
 from ..fem.bell import BellMG, BellSystem
 from ..mesh import DIM, Mesh
 from ..ops.bell import BlockCSR, csr_arrays, sell_matvec
+from ..utils.profiling import span
 from .collectives import SlabVector, psum, replicate, to_device
 from .halo import HaloShardedOperator, SlabBlockJacobi
 from .sharding import DeviceMesh
@@ -117,17 +118,24 @@ class HaloMG:
 
         def run(d):
             r2d = (first[d] * self.m_c[d]).view(DIM, -1)
-            return self.coarse[d]._vcycle(0, r2d).reshape(-1)
+            return self.coarse[d]._vcycle(0, r2d, top=1).reshape(-1)
 
         return replicate(self.op.devices, run)
 
     def apply(self, r: SlabVector) -> SlabVector:
-        z = self._smooth(r, None, self.nu)
-        res = r - self.op.matvec(z)
-        m_f = self.op.free_mask
-        zc = self._coarse_apply(self.restrict(res * m_f))
-        z = z + self.prolong(zc) * m_f
-        return self._smooth(r, z, self.nu)
+        """The V-cycle: spans ``vcycle`` and, inside it, ``L0`` (the
+        sharded fine level) and the coarse hierarchy's ``L1``, ... and
+        ``coarse``, as on one device."""
+        with span("vcycle"):
+            with span("L0"):
+                z = self._smooth(r, None, self.nu)
+                res = r - self.op.matvec(z)
+                m_f = self.op.free_mask
+                rc = self.restrict(res * m_f)
+            zc = self._coarse_apply(rc)
+            with span("L0"):
+                z = z + self.prolong(zc) * m_f
+                return self._smooth(r, z, self.nu)
 
 
 def _slab_transfer(slab_of_rcm: np.ndarray, ft: dict, n_slab_rows: int):

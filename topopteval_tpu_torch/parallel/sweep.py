@@ -36,6 +36,7 @@ from ..materials import SIMPMaterial, lame_parameters
 from ..mesh import DIM, Mesh, resolve_device
 from ..ops.elements import _inv3x3, physical_gradients
 from ..ops.scatter import RowScatterPlan
+from ..utils.profiling import span
 
 #: share of the free device (or host) memory one call's lanes may take
 _MEMORY_SHARE = 0.5
@@ -241,7 +242,9 @@ def solve_lanes(kernel: SweepKernel, esc: torch.Tensor, loads: torch.Tensor,
     solutions [N, 3, P] if ``return_u``.  Each lane stops when
     ``it >= maxiter`` or ``|r| <= tol |r0| + tol`` (tested before every
     step, one host read per iteration); a non-converged lane is reported
-    through its mask.  The energy is ``0.5 x . A(x)``."""
+    through its mask.  The energy is ``0.5 x . A(x)``.  Spans of the
+    current timer: ``pcg`` (inside it each ``iter`` and its ``sync``, the
+    active-lane count read back) and ``energy``."""
     dtype = loads.dtype
     P = loads.shape[-1]
     dev = loads.device
@@ -266,50 +269,58 @@ def solve_lanes(kernel: SweepKernel, esc: torch.Tensor, loads: torch.Tensor,
     rn_out = torch.empty_like(rn)
     eps_all = eps
     esc_run = esc
-    while True:
-        active = (it < maxiter) & (rn > eps)
-        n_active = int(active.sum())
-        if n_active < lanes.numel():
-            stop = ~active
-            done = lanes[stop]
-            x_out[..., done] = x[..., stop]
-            it_out[done] = it[stop]
-            rn_out[done] = rn[stop]
-            if n_active == 0:
-                break
-            # keep the lanes still running only
-            x, r, p = x[..., active], r[..., active], p[..., active]
-            rz, rn, eps, it = rz[active], rn[active], eps[active], it[active]
-            esc_run, binv = esc_run[:, active], binv[..., active]
-            lanes = lanes[active]
-        Ap = kernel.matvec_lanes(esc_run, p)
-        pAp = _ldot(p, Ap)
-        alpha = (rz / torch.where(pAp == 0, 1.0, pAp)).to(dtype)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = prec(r)
-        rz_n = _ldot(r, z)
-        beta = (rz_n / torch.where(rz == 0, 1.0, rz)).to(dtype)
-        p = z + beta * p
-        rn = torch.sqrt(_ldot(r, r))
-        rz = rz_n
-        it = it + 1
-    energy = 0.5 * _ldot(x_out, kernel.matvec_lanes(esc, x_out))
+    with span("pcg"):
+        while True:
+            with span("iter"):
+                active = (it < maxiter) & (rn > eps)
+                with span("sync"):
+                    n_active = int(active.sum())
+                if n_active < lanes.numel():
+                    stop = ~active
+                    done = lanes[stop]
+                    x_out[..., done] = x[..., stop]
+                    it_out[done] = it[stop]
+                    rn_out[done] = rn[stop]
+                    if n_active == 0:
+                        break
+                    # keep the lanes still running only
+                    x, r, p = x[..., active], r[..., active], p[..., active]
+                    rz, rn = rz[active], rn[active]
+                    eps, it = eps[active], it[active]
+                    esc_run, binv = esc_run[:, active], binv[..., active]
+                    lanes = lanes[active]
+                Ap = kernel.matvec_lanes(esc_run, p)
+                pAp = _ldot(p, Ap)
+                alpha = (rz / torch.where(pAp == 0, 1.0, pAp)).to(dtype)
+                x = x + alpha * p
+                r = r - alpha * Ap
+                z = prec(r)
+                rz_n = _ldot(r, z)
+                beta = (rz_n / torch.where(rz == 0, 1.0, rz)).to(dtype)
+                p = z + beta * p
+                rn = torch.sqrt(_ldot(r, r))
+                rz = rz_n
+                it = it + 1
+    with span("energy"):
+        energy = 0.5 * _ldot(x_out, kernel.matvec_lanes(esc, x_out))
     out = (energy, it_out, rn_out <= eps_all)
     return (*out, x_out) if return_u else out
 
 
 def _as_lanes(kernel: SweepKernel, escales, loads):
     """[P, C] scales and [P, ndof] loads → [C, P] and [N, 3, P] tensors of
-    the kernel's dtype on its device."""
-    esc = torch.as_tensor(np.asarray(escales) if not torch.is_tensor(escales)
-                          else escales, dtype=kernel.dtype,
-                          device=kernel.device)
-    f = torch.as_tensor(np.asarray(loads) if not torch.is_tensor(loads)
-                        else loads, dtype=kernel.dtype, device=kernel.device)
-    P = f.shape[0]
-    return (esc.t().contiguous(),
-            f.reshape(P, -1, DIM).permute(1, 2, 0).contiguous())
+    the kernel's dtype on its device (a span ``upload``, as the pairs'
+    gather in :func:`sweep_all_pairs`)."""
+    with span("upload"):
+        esc = torch.as_tensor(
+            np.asarray(escales) if not torch.is_tensor(escales) else escales,
+            dtype=kernel.dtype, device=kernel.device)
+        f = torch.as_tensor(np.asarray(loads) if not torch.is_tensor(loads)
+                            else loads, dtype=kernel.dtype,
+                            device=kernel.device)
+        P = f.shape[0]
+        return (esc.t().contiguous(),
+                f.reshape(P, -1, DIM).permute(1, 2, 0).contiguous())
 
 
 def sweep_compliance(kernel: SweepKernel, escales, loads,
@@ -376,8 +387,9 @@ def sweep_all_pairs(kernel: SweepKernel, escales, loads,
                              np.empty(P, bool))
     for c0 in range(0, P, chunk):
         sl = slice(c0, min(c0 + chunk, P))
-        e, it, cv = sweep_compliance_pairs(kernel, escales[bi[sl]],
-                                           loads[lj[sl]], tol=tol,
+        with span("upload"):
+            esc_c, f_c = escales[bi[sl]], loads[lj[sl]]
+        e, it, cv = sweep_compliance_pairs(kernel, esc_c, f_c, tol=tol,
                                            maxiter=maxiter)
         e_out[sl], it_out[sl], cv_out[sl] = (
             e.cpu().numpy(), it.cpu().numpy(), cv.cpu().numpy())
