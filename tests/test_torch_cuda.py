@@ -1425,3 +1425,173 @@ def test_halo_shard_b1_matches_its_plain_version(cuda):
         ref = ek.tet4_apply_reference(sh.coords, sh.conn, u, sh.lam, sh.mu)
         assert float((out - ref).abs().max()) <= TOL[torch.float64] * float(
             ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# fem/solvers.cg: one CUDA graph an MG-PCG iteration on the block-ELL route
+# ---------------------------------------------------------------------------
+
+MG_CFG = tt.SolverConfig(method="cg", preconditioner="multigrid",
+                         tolerance=1e-10, verbose=False)
+
+
+@pytest.fixture(scope="module")
+def beam8_mesh(tmp_path_factory):
+    """The scale-8 beam (100 x 32 x 8 hexes, 153,600 Tet4) through .vtu,
+    so that it takes the block-ELL route."""
+    beam = tt.generate_grid_tet(100, 32, 8, (0, 0, 0), (60.0, 20.0, 4.0))
+    path = tt.write_vtu(
+        str(tmp_path_factory.mktemp("beam8") / "beam_scale_8.vtu"), beam)
+    return tt.import_mesh(path)
+
+
+@pytest.fixture
+def no_mg_disk_cache(monkeypatch):
+    monkeypatch.setenv("TOPOPT_MG_CACHE_DIR", "off")
+
+
+def _recorded_cg(monkeypatch):
+    """api.cg wrapped to keep each call's (niter, graph_iters, x)."""
+    from topopteval_tpu_torch import api
+    calls = []
+    real = api.cg
+
+    def recording(*args, **kw):
+        res = real(*args, **kw)
+        calls.append((res.niter, res.graph_iters, res.x.clone()))
+        return res
+
+    monkeypatch.setattr(api, "cg", recording)
+    return calls
+
+
+def _graph_of(problem):
+    """The captured iteration kept on the problem's V-cycle."""
+    graphs = vars(problem._mg_cache[2]).get("_cg_graphs", {})
+    assert len(graphs) == 1
+    return next(iter(graphs.values()))
+
+
+def test_graph_solve_matches_the_eager_loop(cuda, beam8_mesh,
+                                            no_mg_disk_cache, monkeypatch):
+    """The scale-8 beam in float32 (refinement passes around MG-PCG),
+    eager and then graphed on one hierarchy: every pass the same count
+    and the same bits, every iteration a replay, the same launch counts;
+    a second solve on the problem captures nothing."""
+    from topopteval_tpu_torch.fem import solvers
+    from topopteval_tpu_torch.ops import bell
+    calls = _recorded_cg(monkeypatch)
+    p = tt.cantilever_beam(beam8_mesh, dtype=torch.float32, device=cuda)
+    runs = {}
+    for mode in ("eager", "graph", "again"):
+        with monkeypatch.context() as m:
+            if mode == "eager":
+                m.setattr(solvers, "_captures", lambda A, b, M: False)
+            bell.reset_launch_counts()
+            calls.clear()
+            r = tt.solve_system(p, MG_CFG)
+            torch.cuda.synchronize()
+            runs[mode] = (r, dict(bell.LAUNCHES), list(calls))
+    (re, ce, pe), (rg, cgr, pg), (ra, ca, pa) = (runs[k] for k in
+                                                 ("eager", "graph", "again"))
+    assert re.converged and re.refinement_passes >= 2
+    assert re.graph_iterations == 0 and all(g == 0 for _, g, _ in pe)
+    for r, c, passes, captured in ((rg, cgr, pg, True), (ra, ca, pa, False)):
+        assert r.converged and r.iterations == re.iterations
+        assert r.graph_iterations == r.iterations
+        assert [n for n, _, _ in passes] == [n for n, _, _ in pe]
+        assert all(g == n for n, g, _ in passes)
+        assert all(torch.equal(x, xe) for (_, _, x), (_, _, xe)
+                   in zip(passes, pe))
+        assert np.array_equal(r.u, re.u) and r.energy == re.energy
+        assert c == ce
+        assert ("solve/krylov/capture" in r.timings) == captured
+        assert not any(k.startswith("solve/krylov/iter/vcycle")
+                       for k in r.timings)
+
+
+def test_graph_dies_with_its_hierarchy(cuda, beam8_mesh):
+    """A hierarchy built, solved with (its iteration captured) and
+    dropped, three times: each captured iteration (its buffers and its
+    graph's pool) goes with its hierarchy, and the device memory in use
+    and held returns to its level.  A first cycle makes the capture
+    stream's one-time allocations (the libraries' workspaces)."""
+    import weakref
+
+    from topopteval_tpu_torch.fem import bell
+    from topopteval_tpu_torch.fem.bc import free_mask_from_bcs
+    from topopteval_tpu_torch.fem.solvers import cg
+    p = tt.cantilever_beam(beam8_mesh, dtype=torch.float32, device=cuda)
+    mask = free_mask_from_bcs(p.n_dofs, p.bcs)
+
+    def cycle():
+        system, mg, _ = bell.build_bell_multigrid(
+            beam8_mesh, p.lam, p.mu, free_mask=mask, dtype=torch.float32,
+            device=cuda)
+        b = torch.as_tensor(system.to_cm(p.f), dtype=torch.float32,
+                            device=cuda) * system.free_mask
+        res = cg(system, b, M=mg, tol=1e-6, maxiter=500)
+        assert res.converged and res.graph_iters == res.niter > 0
+        graphs = vars(mg)["_cg_graphs"]
+        assert len(graphs) == 1
+        return weakref.ref(next(iter(graphs.values())))
+
+    def level():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    cycle()
+    before = level()
+    graphs = [cycle() for _ in range(3)]
+    after = level()
+    print("allocated, reserved before and after:", before, after)
+    assert all(g() is None for g in graphs)
+    assert after == before
+
+
+def test_graph_replays_show_in_the_profiler(cuda, beam8_mesh,
+                                            no_mg_disk_cache):
+    """A solve whose capture and replays run under torch.profiler: the
+    trace holds one B4 kernel for every launch the counts hold."""
+    from topopteval_tpu_torch.ops import bell
+    p = tt.cantilever_beam(beam8_mesh, dtype=torch.float32, device=cuda)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    bell.reset_launch_counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        r = tt.solve_system(p, MG_CFG)
+        torch.cuda.synchronize()
+    assert r.converged and r.graph_iterations == r.iterations > 0
+    assert "solve/krylov/capture" in r.timings
+    b4 = [e for e in prof.profiler.kineto_results.events()
+          if "CUDA" in str(e.device_type()) and not e.is_user_annotation()
+          and "csr_matvec_kernel" in e.name() and "Block<" in e.name()]
+    assert len(b4) == bell.LAUNCHES["bell_matvec"] > r.iterations
+
+
+@pytest.mark.parametrize("route", ["stencil", "block_jacobi", "galerkin",
+                                   "sharded", "float64"])
+def test_graph_engages_only_on_the_block_ell_route(cuda, route, monkeypatch,
+                                                   no_mg_disk_cache):
+    """The stencil and Galerkin multigrid, block-Jacobi CG and a sharded
+    solve run the eager loop on the card; the block-ELL route in float64
+    (no refinement) runs its iterations as replays."""
+    mesh = tt.generate_grid_tet(16, 8, 4, (0, 0, 0), (16.0, 8.0, 4.0))
+    if route != "stencil":
+        mesh.structured_info = None
+    cfg = MG_CFG
+    kw = {}
+    if route == "block_jacobi":
+        cfg = tt.SolverConfig(method="cg", preconditioner="block_diagonal",
+                              tolerance=1e-8, verbose=False)
+    elif route == "galerkin":
+        monkeypatch.setenv("TOPOPT_MG", "galerkin")
+    elif route == "sharded":
+        kw = dict(devices=[cuda] * 2)
+    dtype = torch.float64 if route == "float64" else torch.float32
+    p = tt.cantilever_beam(mesh, dtype=dtype, device=cuda)
+    r = tt.solve_system(p, cfg, **kw)
+    assert r.converged and r.iterations > 0
+    want = r.iterations if route == "float64" else 0
+    assert r.graph_iterations == want

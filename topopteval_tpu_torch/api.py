@@ -322,6 +322,7 @@ class SolveResult:
     history: Optional[np.ndarray] = None
     timings: Optional[dict] = None        # per-phase seconds
     refinement_passes: int = 0            # inner solves of the fp32 route
+    graph_iterations: int = 0             # of iterations, CUDA graph replays
 
     # tuple-unpacking parity with the reference's 5-tuple return
     def __iter__(self):
@@ -831,6 +832,7 @@ def _solve_system(problem: Problem, config: SolverConfig, x0, devices,
     energy64 = None         # fp64 energy from the refined route
     u64 = None              # fp64 displacements from the refined route
     passes = 0              # inner solves of the refined route
+    graph_its = 0           # iterations run as CUDA graph replays (cg)
 
     def _host_direct():
         """fp64 host sparse LU with the problem's own f and BCs."""
@@ -863,9 +865,11 @@ def _solve_system(problem: Problem, config: SolverConfig, x0, devices,
                         x0_64 = np.asarray(x0, np.float64)[:n] * system.mask
 
                 def _inner(rhs, left, tol_inner):
+                    nonlocal graph_its
                     with span("krylov"):
                         r = cg(op, rhs, M=M, tol=tol_inner, maxiter=left,
                                record_history=config.history)
+                    graph_its += r.graph_iters
                     return r.x, r.niter, r.history
 
                 u64, niter, rnorm, conv, history, passes = _refined_generic(
@@ -889,6 +893,7 @@ def _solve_system(problem: Problem, config: SolverConfig, x0, devices,
                 u, niter, rnorm, conv = (res.x, res.niter, res.residual_norm,
                                          res.converged)
                 history = res.history
+                graph_its = res.graph_iters
             if config.verbose:
                 from .fem.robust import print_convergence_report
                 print_convergence_report(config, "cg(multigrid)", niter, rnorm,
@@ -954,7 +959,7 @@ def _solve_system(problem: Problem, config: SolverConfig, x0, devices,
             if n < DIRECT_LAST_RESORT_DOFS:
                 print_warning("falling back to host direct solve")
                 u = _host_direct()
-                niter, rnorm, conv = 1, 0.0, True
+                niter, rnorm, conv, graph_its = 1, 0.0, True, 0
                 method = "direct(verification-fallback)"
                 # the direct solve is interleaved, and ``op`` may be the
                 # component-major block-ELL system: the energy and the
@@ -980,13 +985,14 @@ def _solve_system(problem: Problem, config: SolverConfig, x0, devices,
     return _finish_result(problem, u, energy, method, niter, rnorm, conv,
                           solve_time, history, timer,
                           dmesh=getattr(op, "dmesh", None), u64=u64,
-                          refinement_passes=passes)
+                          refinement_passes=passes, graph_iterations=graph_its)
 
 
 def _finish_result(problem: Problem, u, energy: float, method: str,
                    niter: int, rnorm: float, conv: bool,
                    solve_time: float, history, timer: PhaseTimer,
-                   dmesh=None, u64=None, refinement_passes=0) -> SolveResult:
+                   dmesh=None, u64=None, refinement_passes=0,
+                   graph_iterations=0) -> SolveResult:
     """Post-solve tail: stress recovery + SolveResult assembly.  ``u64``
     holds the refined route's fp64-certified displacements, which the
     result keeps instead of their working-dtype copy.  ``dmesh`` is the
@@ -1017,7 +1023,8 @@ def _finish_result(problem: Problem, u, energy: float, method: str,
         max_von_mises=max_vm, max_stress_cell=max_cell,
         method=method, iterations=niter, residual_norm=rnorm,
         converged=conv, solve_time=solve_time, history=history,
-        timings=timer.as_dict(), refinement_passes=refinement_passes)
+        timings=timer.as_dict(), refinement_passes=refinement_passes,
+        graph_iterations=graph_iterations)
 
 
 # SIMP variant shares the implementation; the material was captured at

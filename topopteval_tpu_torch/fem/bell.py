@@ -96,6 +96,10 @@ class BellMatrix:
     # shifting the energy by ~1 % at 35k DOFs (fem/bell.py:94-104 there).
     vals_lo: Optional[torch.Tensor] = None
 
+    #: the matvec makes no host read and allocates only through PyTorch's
+    #: allocator, so ``fem.solvers.cg`` may capture it in a CUDA graph
+    capturable = True
+
     @property
     def n_dofs(self) -> int:
         return 3 * self.n_rows_p
@@ -159,6 +163,10 @@ class BellMG(MultigridPreconditioner):
 
     smoother: str = "chebyshev"
 
+    #: the V-cycle makes no host read (B4, B5, elementwise ops and the
+    #: dense coarse product): ``fem.solvers.cg`` may capture it
+    capturable = True
+
     def _shape(self, r):
         return r.reshape(3, -1)
 
@@ -179,6 +187,9 @@ class BellSystem:
 
     layout = "cm"
     dmesh = None
+    #: the matvec is ``BellMatrix.matvec``: ``fem.solvers.cg`` may
+    #: capture it
+    capturable = True
 
     def __init__(self, matrix: BellMatrix, perm: np.ndarray, n_nodes: int,
                  dtype, host_bsr: dict,

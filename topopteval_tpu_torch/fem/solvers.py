@@ -15,12 +15,25 @@ times its steps as spans of the current timer (``utils.profiling``):
 axpys) and ``sync`` (the ‖r‖ readback); a multigrid preconditioner
 adds its own ``vcycle``.
 ``A`` is anything with ``.matvec`` or a dense 2-D matrix.
+
+On a CUDA vector, with an ``A`` and an ``M`` (where there is one) whose
+class is marked ``capturable`` (its apply makes no host read and
+allocates only through PyTorch's allocator: the block-ELL
+``BellSystem``, ``BellMatrix`` and ``BellMG``), ``cg`` captures one whole
+iteration as a CUDA graph, once per preconditioner, and runs every
+iteration as one replay of it.  The set-up before the loop, the one host
+read of ‖r‖ an iteration and the stopping test stay as they are, and so
+do the iterates' bits.  The body's spans (``matvec``, ``update``,
+``vcycle``) then time the capture, under ``capture``; ``iter`` and
+``iter/sync`` still time each replay.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -59,6 +72,7 @@ class KrylovResult:
     residual_norm: float            # final recurrence ‖r‖
     converged: bool
     history: Optional[np.ndarray] = None   # [niter+1] ‖r‖ per iteration
+    graph_iters: int = 0            # of niter, run as CUDA graph replays
 
 
 def apply_preconditioner(M, r: torch.Tensor) -> torch.Tensor:
@@ -89,13 +103,135 @@ def _zeros_like(b):
         else b.zeros_like()
 
 
+def _cg_iteration(A, M, x, r, p, rz, dtype):
+    """One PCG iteration after the set-up: updates ``x``, ``r`` and ``p``
+    in place and returns the new r·z and ‖r‖ (float64 device scalars).
+    The eager loop and the captured graph both run it."""
+    with span("matvec"):
+        Ap = A.matvec(p)
+    with span("update"):
+        pAp = _dot(p, Ap)
+        alpha = (rz / torch.where(pAp == 0, 1.0, pAp)).to(dtype)
+        x.addcmul_(alpha, p)
+        r.addcmul_(alpha, Ap, value=-1.0)
+    z = apply_preconditioner(M, r)
+    with span("update"):
+        rz_new = _dot(r, z)
+        beta = (rz_new / torch.where(rz == 0, 1.0, rz)).to(dtype)
+        p.mul_(beta).add_(z)
+        return rz_new, torch.sqrt(_dot(r, r))
+
+
+def _captures(A, b, M) -> bool:
+    """Whether ``cg`` runs its iterations as replays of a CUDA graph: ``b``
+    is a CUDA tensor, and ``A`` and ``M`` (unless None) are marked
+    ``capturable``."""
+    return (isinstance(b, torch.Tensor) and b.is_cuda
+            and getattr(A, "capturable", False)
+            and (M is None or getattr(M, "capturable", False)))
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device):
+    """The stream of the captures on ``device``: one a device, so that
+    the libraries' per-stream workspaces (cuBLAS's) are made once."""
+    return torch.cuda.Stream(device)
+
+
+def _capture(step, device: torch.device):
+    """``step`` captured as a CUDA graph on ``device``; returns the
+    graph's replay, which launches it on the device's current stream."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device):
+        with torch.cuda.graph(graph, stream=_capture_stream(device)):
+            step()
+
+    def replay():
+        with torch.cuda.device(device):
+            graph.replay()
+
+    return replay
+
+
+def _launch_counters():
+    """The kernel wrappers' launch counts (each module's ``LAUNCHES``)."""
+    from ..ops import bell, element_kernels, ell, ke_kernels, stencil
+    return [m.LAUNCHES for m in (bell, element_kernels, ell, ke_kernels,
+                                 stencil)]
+
+
+class _IterationGraph:
+    """:func:`_cg_iteration` captured as a CUDA graph over buffers of its
+    own (``x``, ``r``, ``p``, ``rz``); the graph's last node copies ‖r‖
+    into a pinned host scalar.  The capture's kernel launches are taken
+    off the wrappers' counts and added again at every replay, so the
+    counts are those of the eager loop."""
+
+    def __init__(self, A, M, b: torch.Tensor):
+        self.A = weakref.ref(A)
+        self.device = b.device
+        self.x, self.r, self.p = (torch.empty_like(b) for _ in range(3))
+        self.rz = torch.empty((), dtype=torch.float64, device=b.device)
+        self.rnorm = torch.empty((), dtype=torch.float64,
+                                 pin_memory=b.is_cuda)
+
+        def step():
+            rz, rnorm = _cg_iteration(A, M, self.x, self.r, self.p, self.rz,
+                                      b.dtype)
+            self.rz.copy_(rz)
+            self.rnorm.copy_(rnorm, non_blocking=True)
+
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        self._replay = _capture(step, b.device)
+        self.launches = []
+        for counter, old in zip(counters, before):
+            added = {k: n - old[k] for k, n in counter.items() if n != old[k]}
+            counter.update(old)
+            if added:
+                self.launches.append((counter, added))
+
+    def load(self, x, r, p, rz) -> None:
+        for buf, v in ((self.x, x), (self.r, r), (self.p, p), (self.rz, rz)):
+            buf.copy_(v)
+
+    def replay(self) -> None:
+        self._replay()
+        for counter, added in self.launches:
+            for name, n in added.items():
+                counter[name] += n
+
+    def norm(self) -> float:
+        """‖r‖ of the last replay, once the stream has run it."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return float(self.rnorm)
+
+
+def _iteration_graph(A, M, b: torch.Tensor) -> _IterationGraph:
+    """The captured iteration of ``A`` and ``M`` for vectors like ``b``,
+    captured at its first use (span ``capture``).  It is kept on ``M``
+    (on ``A`` without one), keyed by dtype, shape and device, so it dies
+    with the hierarchy whose tensors it reads."""
+    owner = A if M is None else M
+    graphs = owner.__dict__.setdefault("_cg_graphs", {})
+    key = (b.dtype, tuple(b.shape), b.device)
+    graph = graphs.get(key)
+    if graph is None or graph.A() is not A:
+        with span("capture"):
+            graph = graphs[key] = _IterationGraph(A, M, b)
+    return graph
+
+
 def cg(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, M=None,
        tol: float = 1e-8, maxiter: int = 10000,
        record_history: bool = False) -> KrylovResult:
     """Preconditioned conjugate gradients for SPD operators (the
     reference's ``Krylov.cg`` path, RobustSolver.jl:332-338).  ``A``
     exposes ``.matvec``; ``b`` may be a tensor or a sharded slab vector
-    (parallel/collectives.SlabVector, with ``A`` and ``M`` sharded)."""
+    (parallel/collectives.SlabVector, with ``A`` and ``M`` sharded).
+    Where :func:`_captures` holds, the iterations are replays of one
+    CUDA graph (module docstring) and ``graph_iters`` counts them."""
     A = _wrap_operator(A)
     x = _zeros_like(b) if x0 is None else x0.clone()
     with span("matvec"):
@@ -108,29 +244,26 @@ def cg(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, M=None,
     eps = tol + tol * rnorm        # Krylov.jl: atol + rtol*‖r0‖
     hist = [rnorm] if record_history else None
     it = 0
+    graph = None
+    if maxiter > 0 and rnorm > eps and _captures(A, b, M):
+        graph = _iteration_graph(A, M, b)
+        graph.load(x, r, p, rz)
     while it < maxiter and rnorm > eps:
         with span("iter"):
-            with span("matvec"):
-                Ap = A.matvec(p)
-            with span("update"):
-                pAp = _dot(p, Ap)
-                alpha = (rz / torch.where(pAp == 0, 1.0, pAp)).to(b.dtype)
-                x.addcmul_(alpha, p)
-                r.addcmul_(alpha, Ap, value=-1.0)
-            z = apply_preconditioner(M, r)
-            with span("update"):
-                rz_new = _dot(r, z)
-                beta = (rz_new / torch.where(rz == 0, 1.0, rz)).to(b.dtype)
-                p.mul_(beta).add_(z)
-                rz = rz_new
-                rnorm_dev = torch.sqrt(_dot(r, r))
+            if graph is None:
+                rz, rnorm_dev = _cg_iteration(A, M, x, r, p, rz, b.dtype)
+            else:
+                graph.replay()
             it += 1
             with span("sync"):
-                rnorm = float(rnorm_dev)
+                rnorm = float(rnorm_dev) if graph is None else graph.norm()
             if record_history:
                 hist.append(rnorm)
+    if graph is not None:
+        x = graph.x.clone()
     return KrylovResult(x, it, rnorm, rnorm <= eps,
-                        np.asarray(hist) if record_history else None)
+                        np.asarray(hist) if record_history else None,
+                        it if graph is not None else 0)
 
 
 def _pnorm(r: torch.Tensor) -> torch.Tensor:

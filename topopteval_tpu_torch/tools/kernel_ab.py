@@ -875,10 +875,15 @@ def _galerkin_beam(scale=MG_SCALE):
 
 def mgpcg_iteration(op, M, b, iters=20):
     """(wall ms, device ms, {kernel key: device ms}) per MG-PCG iteration
-    (``cg`` with tolerance 0), the device time under ``torch.profiler``."""
+    (``cg`` with tolerance 0), the device time under ``torch.profiler``.
+    ``cg`` runs on a fresh copy of ``M``: the CUDA graph that ``cg`` keeps
+    on a block-ELL ``M`` replays the kernels patched in at its capture,
+    which may be the other tree's."""
+    import dataclasses
     import time
 
     from ..fem.solvers import cg
+    M = dataclasses.replace(M)
     cg(op, b, M=M, tol=0.0, maxiter=3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
