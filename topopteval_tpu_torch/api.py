@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import os
 import time
 from typing import List, Optional, Sequence
@@ -52,6 +53,9 @@ from .utils.terminal import log, print_warning
 
 #: lower clip of the per-pass inner tolerance in mixed-precision refinement
 _REFINE_INNER_FLOOR = 1e-7
+#: past ``max_passes`` a refinement pass has to cut the true residual this
+#: many times, else the refinement has stalled
+_REFINE_MIN_GAIN = 10.0
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +135,13 @@ class Problem:
     #: build record of the last block-ELL hierarchy (fem/bell.py)
     _mg_build_info: Optional[dict] = dataclasses.field(default=None,
                                                        repr=False)
+    #: host seconds by span path of ``setup_problem`` (``to_quadratic``)
+    #: and of the last volume-force call (fem/loads.py: ``volume_force``,
+    #: ``volume_force/quadrature``, ``volume_force/nodal_sum``)
+    setup_timings: Optional[dict] = dataclasses.field(default=None,
+                                                      repr=False)
+    load_timings: Optional[dict] = dataclasses.field(default=None,
+                                                     repr=False)
 
     def __post_init__(self):
         if self.quad_order is None:
@@ -169,7 +180,9 @@ def setup_problem(mesh: Mesh, interpolation_order: int = 1,
     families, FiniteElementAnalysis.jl:160-163).  ``dtype`` defaults to
     float32, the JAX package's accelerator default; ``torch.float64``
     gives fp64 throughout.  ``mode`` is the operator's, ``"otf"`` or
-    ``"stored"``.  ``device`` defaults to ``"cuda"`` and must exist."""
+    ``"stored"``.  ``device`` defaults to ``"cuda"`` and must exist.
+    A refinement runs as a public call (``PhaseTimer.call``) with the span
+    ``to_quadratic``, whose seconds are in ``Problem.setup_timings``."""
     from .mesh import SOLID_TYPES
     if mesh.element_type not in SOLID_TYPES:
         raise ValueError(
@@ -178,15 +191,20 @@ def setup_problem(mesh: Mesh, interpolation_order: int = 1,
             "mesh whose dominant cell type is one of these")
     if interpolation_order not in (1, 2):
         raise ValueError("interpolation_order must be 1 or 2")
+    setup_timings = {}
     if interpolation_order == 2:
         if mesh.element_type in ("tet4", "hex8"):
-            mesh = mesh.to_quadratic()
+            timer = PhaseTimer()
+            with timer.call("setup_problem"), span("to_quadratic"):
+                mesh = mesh.to_quadratic()
+            setup_timings = timer.as_dict()
         else:
             log(f"mesh is already quadratic ({mesh.element_type})")
     log(f"Setting up problem with {mesh.element_type} elements")
     log(f"Number of DOFs: {mesh.n_dofs}")
     return Problem(mesh=mesh, interpolation_order=interpolation_order,
-                   dtype=dtype, mode=mode, device=device)
+                   dtype=dtype, mode=mode, device=device,
+                   setup_timings=setup_timings)
 
 
 def problem_from_numpy(state: dict, device="cuda",
@@ -554,6 +572,14 @@ def _refined_generic(system, inner, f64, tol, maxiter, device, x0_64=None,
     ``inner(rhs_dev, iters_left, tol_inner) -> (x_dev, niter, history)``
     for the correction.  The inner tolerance aims just below what would
     finish this pass (0.3*eps/rn), clipped to [1e-7, 1e-4].
+
+    The refinement stops at the tolerance, at the iteration budget, or,
+    after ``max_passes`` passes, at the first pass that does not cut the
+    true residual ``_REFINE_MIN_GAIN`` times.  A refinement stalled so is
+    converged where its residual is down to the float64 rounding floor of
+    the operator applied to its iterate (``system.residual_floor64``),
+    about the least a float64 iterate reaches: on a slender SIMP part
+    under its own weight that floor lies above the tolerance.
     Returns (x64, total_iters, true_rnorm, converged, history, passes),
     ``passes`` being the number of inner solves.
     """
@@ -564,16 +590,28 @@ def _refined_generic(system, inner, f64, tol, maxiter, device, x0_64=None,
     total = 0
     passes = 0
     hists = []
-    rn = rn0
-    for p in range(max_passes):
+    rn_prev = np.inf
+    converged = False
+    for p in itertools.count():
         with span("refine/residual"):
             r64 = f64 if (p == 0 and x0_64 is None) \
                 else f64 - system.matvec64(x64)
             rn = float(np.linalg.norm(r64))
-        if rn <= eps or total >= maxiter:
+        if rn <= eps:
+            converged = True
+            break
+        if total >= maxiter:
+            break
+        if p >= max_passes and rn * _REFINE_MIN_GAIN > rn_prev:
+            floor = getattr(system, "residual_floor64", None)
+            if floor is not None:
+                with span("refine/floor"):
+                    converged = rn <= floor(x64)
+                log(f"  Refinement stalled at {rn:.6e}: "
+                    f"{'at' if converged else 'above'} the float64 floor")
             break
         log(f"  Refinement pass {p}: true residual = {rn:.6e}")
-        s = rn
+        rn_prev = s = rn
         with span("refine/transfer"):
             rhs = torch.as_tensor(r64 / s, dtype=dtype, device=device)
         tol_inner = float(np.clip(0.3 * eps / rn, _REFINE_INNER_FLOOR, 1e-4))
@@ -587,13 +625,9 @@ def _refined_generic(system, inner, f64, tol, maxiter, device, x0_64=None,
         if record_history and hist is not None:
             h = np.asarray(hist)[: n_it + 1] * s
             hists.append(h if not hists else h[1:])
-    else:
-        with span("refine/residual"):
-            r64 = f64 - system.matvec64(x64)
-            rn = float(np.linalg.norm(r64))
     history = (np.concatenate(hists)
                if record_history and hists else None)
-    return x64, total, rn, rn <= eps, history, passes
+    return x64, total, rn, converged, history, passes
 
 
 def _build_preconditioner(op, config: SolverConfig):
@@ -641,6 +675,10 @@ class _Relayout:
     def matvec64(self, x64: np.ndarray) -> np.ndarray:
         s = self.system
         return s.to_il(s.matvec64(s.to_cm(x64)))
+
+    def residual_floor64(self, x64: np.ndarray) -> float:
+        s = self.system
+        return s.residual_floor64(s.to_cm(x64))
 
 
 def _device_mesh(problem: Problem, devices, data_parallel: int = 1):

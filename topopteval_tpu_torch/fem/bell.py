@@ -207,6 +207,7 @@ class BellSystem:
         #: transfer (parallel/halo_mg.py); None if the source had none
         self.fine_transfer = fine_transfer
         self._csr64 = None
+        self._abs64 = None
         #: host seconds spent in matvec64 (the refinement's residuals)
         self.matvec_seconds = 0.0
         self.build_seconds = 0.0
@@ -261,6 +262,26 @@ class BellSystem:
         y = m * out + (1.0 - m) * x64
         self.matvec_seconds += time.perf_counter() - t0
         return y
+
+    def residual_floor64(self, x64: np.ndarray) -> float:
+        """eps64 * ||m * (|K| (m * |x|))||: the float64 rounding floor of
+        the constrained operator applied to ``x64`` (flat cm).  A residual
+        under it is a backward error of one unit roundoff in the stored
+        operator (Oettli-Prager, in the 2-norm), about the least a float64
+        iterate reaches: on the Tet10 beam under its own weight the
+        refinement stalls at a quarter of it, and the same iterate's
+        residual evaluated in long double is no smaller.  Its host
+        seconds count with ``matvec_seconds``."""
+        t0 = time.perf_counter()
+        K, m = self._host_csr64()
+        if self._abs64 is None:
+            self._abs64 = abs(K)
+        Np = self.matrix.n_rows_p
+        u_nm = (m * np.abs(x64)).reshape(3, Np).T.reshape(-1)
+        out = (self._abs64 @ u_nm).reshape(Np, 3).T.reshape(-1)
+        floor = float(np.finfo(np.float64).eps * np.linalg.norm(m * out))
+        self.matvec_seconds += time.perf_counter() - t0
+        return floor
 
     # layout converters (host)
     def to_cm(self, vec_il: np.ndarray) -> np.ndarray:

@@ -9,10 +9,19 @@ device (``physical_gradients`` over every element at once); only the
 nodal weights [C, k] come back to the host, where ``np.bincount`` sums
 them onto the nodes.  Facet quadrature is host NumPy (ops/facets.py): a
 facet batch is a few thousand faces.
+
+``apply_volume_force`` and ``apply_variable_density_volume_force`` (and
+``apply_gravity``/``apply_acceleration`` through the first) run as public
+calls (``PhaseTimer.call``): a phase ``volume_force`` with the spans
+``volume_force/quadrature`` (the device cell quadrature and its copy
+back) and ``volume_force/nodal_sum`` (the host sum onto ``problem.f``),
+whose host seconds the call leaves in ``problem.load_timings``, replaced
+by each call.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Sequence, Tuple
 
 import numpy as np
@@ -21,6 +30,7 @@ import torch
 from ..mesh import DIM, FULL_FACE_TABLES, Mesh
 from ..ops.elements import element_tables, physical_gradients
 from ..ops.facets import facet_geometry
+from ..utils.profiling import PhaseTimer, span
 from ..utils.terminal import log
 
 
@@ -28,25 +38,44 @@ def _cell_quadrature(mesh: Mesh, device, order: int = 2
                      ) -> Tuple[np.ndarray, float]:
     """(nodal weights [C, k] = sum_q N[q, k] w_q |J|, total volume), in
     float64, computed on ``device``."""
-    N, _, _ = element_tables(mesh.element_type, order)
-    dmesh = mesh.device(dtype=torch.float64, device=device)
-    _, wdet = physical_gradients(dmesh.coords[dmesh.conn.long()],
-                                 mesh.element_type, order)
-    nodal = wdet @ torch.as_tensor(N, dtype=torch.float64,
-                                   device=wdet.device)
-    return nodal.cpu().numpy(), float(wdet.sum())
+    with span("quadrature"):
+        N, _, _ = element_tables(mesh.element_type, order)
+        dmesh = mesh.device(dtype=torch.float64, device=device)
+        _, wdet = physical_gradients(dmesh.coords[dmesh.conn.long()],
+                                     mesh.element_type, order)
+        nodal = wdet @ torch.as_tensor(N, dtype=torch.float64,
+                                       device=wdet.device)
+        return nodal.cpu().numpy(), float(wdet.sum())
 
 
 def _add_nodal(problem, nodes: np.ndarray, weights: np.ndarray,
                vector: np.ndarray) -> np.ndarray:
     """problem.f[node, :] += (sum of the weights at node) * vector; returns
     the per-node weight sums."""
-    w = np.bincount(np.asarray(nodes, np.int64).reshape(-1),
-                    weights=weights.reshape(-1), minlength=problem.n_dofs // DIM)
-    problem.f.reshape(-1, DIM)[:] += w[:, None] * vector[None, :]
+    with span("nodal_sum"):
+        w = np.bincount(np.asarray(nodes, np.int64).reshape(-1),
+                        weights=weights.reshape(-1),
+                        minlength=problem.n_dofs // DIM)
+        problem.f.reshape(-1, DIM)[:] += w[:, None] * vector[None, :]
     return w
 
 
+def _volume_force_call(fn):
+    """``fn(problem, ...)`` as a public call with its own timer, inside a
+    phase ``volume_force``; the timer's seconds by path go to
+    ``problem.load_timings``."""
+
+    @functools.wraps(fn)
+    def call(problem, *args, **kwargs):
+        timer = PhaseTimer()
+        with timer.call(fn.__name__), timer.phase("volume_force"):
+            fn(problem, *args, **kwargs)
+        problem.load_timings = timer.as_dict()
+
+    return call
+
+
+@_volume_force_call
 def apply_volume_force(problem, body_force_vector: Sequence[float],
                        density: float = 1.0, order: int = 2) -> None:
     """Body force integration f_i += b * N_i * dOmega.
@@ -85,6 +114,7 @@ def apply_acceleration(problem, acceleration_vector: Sequence[float],
     apply_volume_force(problem, density * a, 1.0)
 
 
+@_volume_force_call
 def apply_variable_density_volume_force(problem,
                                         body_force_vector: Sequence[float],
                                         density_data: np.ndarray,
