@@ -43,7 +43,11 @@ few) and each failing the script on a failed check:
 8. the block-ELL multigrid route on meshes without ``structured_info``:
    the 1,228,800-tet beam written to .vtu and read back, solved in float32
    (hi/lo system operator, bf16 V-cycle copies, float64 refinement)
-   against data/oracle_energies.json; both block-ELL kernels against their
+   against data/oracle_energies.json; the refinement's float64 B4
+   launches (over ``BellSystem.matrix64``, and over |values| |u|) at its
+   fine shape against their plain version, timed, with the device
+   residual and floor against the host twins (the same at the scale-8
+   tet10 beam's fine shape in phase 9); both block-ELL kernels against their
    plain versions at that beam's fine-operator and transfer shapes, on a
    coarse Galerkin level and on a random matrix with empty rows, each
    launched twice and bit for bit the same; the lo
@@ -3016,6 +3020,76 @@ def main() -> int:
               flush=True)
         return rel, info
 
+    def bell_bound(name, A, lo, u):
+        """(bound_ms, bound_by): bytes of every input read once and the
+        output written once, against the operations the function needs."""
+        nnz = A.nnz
+        nbytes = (A.indptr.numel() * 4 + nnz * 4
+                  + A.vals.numel() * A.vals.element_size()
+                  + (0 if lo is None else lo.numel() * lo.element_size())
+                  + u.numel() * u.element_size()
+                  + 3 * A.n_rows * u.element_size())
+        flops = FLOPS_PER_BLOCK[name] * nnz * (1 if lo is None else 2)
+        return bound_ms(nbytes, flops, u.dtype)
+
+    def refine_b4(tag, p, r):
+        """The float64 refinement's launches at a block-ELL solve's fine
+        shape (``BellSystem.matrix64``): B4 in float64 and over |values|
+        |u|, each launched twice, counted, and held to its plain version;
+        the device residual and floor against the host twins; both
+        launches' times beside their bound."""
+        system = tt_api._get_multigrid(p)[0]
+        check(r.device_residuals > 0,
+              f"{tag}: the refinement's residuals did not run on the card")
+        A = system.matrix64
+        check(A.vals.dtype == torch.float64
+              and A.cols is system.matrix.A.cols,
+              f"{tag}: matrix64 is not the fine structure in float64")
+        rng = np.random.default_rng(21)
+        u = torch.as_tensor(rng.standard_normal((3, A.n_cols)), device=dev)
+        for absolute in (False, True):
+            label = f"{tag} fine_fp64{'_abs' if absolute else ''}"
+            before = bo.LAUNCHES["bell_matvec"]
+            out, again = (bo.bell_matvec(u, A, absolute=absolute)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            check(bo.LAUNCHES["bell_matvec"] == before + 2,
+                  f"{label}: bell_matvec did not count its launches")
+            check(bool(torch.equal(out, again)), f"{label}: a repeat differs")
+            ref = bo.bell_matvec_reference(u, A, absolute=absolute)
+            err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+            b_ms, b_by = bell_bound("bell_matvec", A, None, u)
+            ms = time_ms(lambda: bo.bell_matvec(u, A, absolute=absolute),
+                         graph=True)
+            print(f"[refine_b4] {label} rows={A.n_rows} nnz={A.nnz} "
+                  f"lanes={bo.bell_lanes(A.n_rows, A.nnz)} launches=2 "
+                  f"repeat_identical=True max_abs_err={err:.3e} "
+                  f"rel={err / scale:.3e} (tol {TOLERANCE['float64']:.0e}) "
+                  f"ms={ms} bound_ms={b_ms} bound_by={b_by}", flush=True)
+            check(err <= TOLERANCE["float64"] * scale,
+                  f"{label} disagrees with its plain version")
+        oracle = system.device_residual()
+        x = rng.standard_normal(3 * system.matrix.n_rows_p)
+        kx = system.matvec64(x)
+        f = rng.standard_normal(x.size) * np.abs(kx).max()
+        want = f - kx
+        r_d, _ = oracle.residual64(torch.as_tensor(f, device=dev),
+                                   torch.as_tensor(x, device=dev))
+        res_rel = float(np.linalg.norm(r_d.cpu().numpy() - want)
+                        / np.linalg.norm(want))
+        floor_h = system.residual_floor64(x)
+        floor_rel = abs(oracle.residual_floor64(torch.as_tensor(
+            x, device=dev)) - floor_h) / floor_h
+        print(f"[refine_b4] {tag} device residual against matvec64: "
+              f"rel={res_rel:.3e} (tol 1e-14); floor against "
+              f"residual_floor64: rel={floor_rel:.3e} (tol 1e-12); solve "
+              f"device_residuals={r.device_residuals} refinement_passes="
+              f"{r.refinement_passes}", flush=True)
+        check(res_rel <= 1e-14, f"{tag}: the device residual is off "
+              f"matvec64 by {res_rel:.3e}")
+        check(floor_rel <= 1e-12, f"{tag}: the device floor is off "
+              f"residual_floor64 by {floor_rel:.3e}")
+
     MG_SIMP = tt.SolverConfig(**{**MG_KW, "max_iterations": 5000})
     with tempfile.TemporaryDirectory() as tmp:
         # 8a. the 1,228,800-tet beam through .vtu, float32, block-ELL route
@@ -3034,6 +3108,7 @@ def main() -> int:
         check(r.converged, "scale-16 block-ELL fp32 did not converge")
         check(rel <= 1e-8, f"scale-16 block-ELL fp32 rel_err {rel:.3e}")
         op16, M16 = tt_api._get_multigrid(p16b)
+        refine_b4("bell_beam16_fp32", p16b, r)
         del mesh, r
 
         # 8b. kernel parity at the real shapes: the scale-16 fine operator
@@ -3230,19 +3305,7 @@ def main() -> int:
               f"SIMP Hex8 block-ELL fp32 rel_err {rel:.3e}")
         del p, mesh
 
-    # 8f. block-ELL kernel times at the scale-16 shapes
-    def bell_bound(name, A, lo, u):
-        """(bound_ms, bound_by): bytes of every input read once and the
-        output written once, against the operations the function needs."""
-        nnz = A.nnz
-        nbytes = (A.indptr.numel() * 4 + nnz * 4
-                  + A.vals.numel() * A.vals.element_size()
-                  + (0 if lo is None else lo.numel() * lo.element_size())
-                  + u.numel() * u.element_size()
-                  + 3 * A.n_rows * u.element_size())
-        flops = FLOPS_PER_BLOCK[name] * nnz * (1 if lo is None else 2)
-        return bound_ms(nbytes, flops, u.dtype)
-
+    # 8f. block-ELL kernel times at the scale-16 shapes (bell_bound above)
     def library_call(name, A, u):
         """One PyTorch call computing the same function (cuSPARSE): a BSR
         (3x3 blocks) or CSR matrix times node-major vectors."""
@@ -3529,6 +3592,7 @@ def main() -> int:
           f"iterations {r_bj.iterations} / {r_mg.iterations}", flush=True)
     check(r_mg.converged and rel <= 1e-8,
           f"scale-8 tet10 routes disagree by {rel:.3e}")
+    refine_b4("tet10_beam8_fp32_mg", p32, r_mg)
     del p, p32, r_bj, r_mg
     tt_api._SKEL_RAM_CACHE.clear()
 

@@ -380,13 +380,11 @@ def test_bell_lo_plane_moves_the_output(cuda):
     from topopteval_tpu_torch.fem.bell import build_bell_multigrid
     from topopteval_tpu_torch.ops import bell
     mesh = tt.generate_grid_tet(6, 3, 3, (0, 0, 0), (6.0, 3.0, 3.0))
-    _, _, info = build_bell_multigrid(mesh, *tt.lame_parameters(1.0, 0.3),
-                                      dtype=torch.float32, device=cuda)
-    host = info["host_arrays"]
-    Np = len(host["L0_indptr"]) - 1
-    A = bell.BlockCSR.from_numpy(host["L0_indptr"], host["L0_cols"],
-                                 host["L0_vals"], Np, torch.float32, cuda)
-    lo = torch.as_tensor(host["fine_vals_lo"], device=cuda)
+    system, _, _ = build_bell_multigrid(
+        mesh, *tt.lame_parameters(1.0, 0.3), dtype=torch.float32,
+        device=cuda)
+    Np = system.matrix.n_rows_p
+    A, lo = system.matrix.A, system.matrix.vals_lo
     u = torch.zeros((3, Np), dtype=torch.float32, device=cuda)
     u[0, :mesh.n_nodes], u[1, :mesh.n_nodes] = 1.0, -0.5
     split = bell.bell_matvec(u, A, lo).double()
@@ -1114,27 +1112,72 @@ def _bell_shape(shape, device, vals_dtype, seed=0, block=True):
     return A, rng
 
 
-@pytest.mark.parametrize("shape", ["empty_rows", "long_rows", "coarse72",
-                                   "ragged"])
-@pytest.mark.parametrize("case", ["f32", "f32_lo", "f32_bf16", "f64"])
-def test_bell_matvec_subwarps_match_plain_version(cuda, case, shape):
-    from topopteval_tpu_torch.ops import bell
-    vec = torch.float64 if case == "f64" else torch.float32
-    vals = {"f32_bf16": torch.bfloat16, "f64": torch.float64}.get(
+def _b4_case(case, shape, device):
+    """(A, u, lo, absolute) of one B4 instantiation on a ``_bell_shape``:
+    ``f32_lo`` with a lo plane of 1e-7 the values, ``f64_abs`` the
+    |values| |u| sums."""
+    f64 = case.startswith("f64")
+    vals = torch.float64 if f64 else {"f32_bf16": torch.bfloat16}.get(
         case, torch.float32)
-    A, rng = _bell_shape(shape, cuda, vals)
-    u = torch.as_tensor(rng.standard_normal((3, A.n_cols)), dtype=vec,
-                        device=cuda)
+    A, rng = _bell_shape(shape, device, vals)
+    u = torch.as_tensor(rng.standard_normal((3, A.n_cols)),
+                        dtype=torch.float64 if f64 else torch.float32,
+                        device=device)
     lo = (A.vals * 1e-7).contiguous() if case == "f32_lo" else None
-    out = bell.bell_matvec(u, A, lo)
-    again = bell.bell_matvec(u, A, lo)
+    return A, u, lo, case == "f64_abs"
+
+
+def _b4_entry(case, A, u, lo, lanes):
+    """One launch of ``case``'s C entry point at a given lane count."""
+    from topopteval_tpu_torch.ops import bell
+    fn = getattr(bell._library(),
+                 f"bell_matvec_{'f32' if case == 'f32_lo' else case}")
+    o = torch.full((3, A.n_rows), float("nan"), dtype=u.dtype,
+                   device=u.device)
+    assert fn(A.indptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
+              None if lo is None else lo.data_ptr(), u.data_ptr(),
+              o.data_ptr(), A.n_rows, A.n_cols, lanes,
+              torch.cuda.current_stream().cuda_stream) == 0
+    return o
+
+
+def _b4_against_plain_version(A, u, lo, absolute, out, again):
+    from topopteval_tpu_torch.ops import bell
     torch.cuda.synchronize()
-    ref = bell.bell_matvec_reference(u, A, lo)
+    ref = bell.bell_matvec_reference(u, A, lo, absolute)
     empty = A.indptr[1:] == A.indptr[:-1]
     assert bool((out[:, empty] == 0).all())
     scale = float(ref.abs().max())
-    assert float((out - ref).abs().max()) <= TOL[vec] * scale
+    assert float((out - ref).abs().max()) <= TOL[u.dtype] * scale
     assert torch.equal(out, again)          # bit-identical launch to launch
+
+
+@pytest.mark.parametrize("shape", ["empty_rows", "long_rows", "coarse72",
+                                   "ragged"])
+@pytest.mark.parametrize("case", ["f32", "f32_lo", "f32_bf16", "f64",
+                                  "f64_abs"])
+def test_bell_matvec_subwarps_match_plain_version(cuda, case, shape):
+    from topopteval_tpu_torch.ops import bell
+    A, u, lo, absolute = _b4_case(case, shape, cuda)
+    before = bell.LAUNCHES["bell_matvec"]
+    out = bell.bell_matvec(u, A, lo, absolute)
+    again = bell.bell_matvec(u, A, lo, absolute)
+    assert bell.LAUNCHES["bell_matvec"] == before + 2
+    _b4_against_plain_version(A, u, lo, absolute, out, again)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("shape", ["empty_rows", "long_rows", "coarse72",
+                                   "ragged"])
+@pytest.mark.parametrize("case", ["f32", "f32_lo", "f32_bf16", "f64",
+                                  "f64_abs"])
+def test_bell_matvec_lanes_match_plain_version(cuda, case, shape, lanes):
+    """Each B4 instantiation at each lane count of its C entry point, on
+    rows that are empty, longer than a staged chunk, a coarse level's and
+    a row count no tile divides, against its plain version."""
+    A, u, lo, absolute = _b4_case(case, shape, cuda)
+    out, again = (_b4_entry(case, A, u, lo, lanes) for _ in range(2))
+    _b4_against_plain_version(A, u, lo, absolute, out, again)
 
 
 @pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8, 16, 32])
@@ -1595,3 +1638,99 @@ def test_graph_engages_only_on_the_block_ell_route(cuda, route, monkeypatch,
     assert r.converged and r.iterations > 0
     want = r.iterations if route == "float64" else 0
     assert r.graph_iterations == want
+
+
+# ---------------------------------------------------------------------------
+# the float64 refinement's residual on the card (fem/bell.BellResidual64):
+# B4 in float64 over the fine values' float64 copy, and over |values| |u|
+# ---------------------------------------------------------------------------
+
+#: sha256 of B4's outputs at every lane count of the C entry point on the
+#: four shapes of the lane tests, by instantiation, as the sources before
+#: the |values| |u| instantiation computed them (NVIDIA H100 80GB HBM3,
+#: CUDA 12.8): adding it leaves the others' code and bits as they were
+B4_BITS = {
+    "f32": "afff9f34bfad6ef100cd3f53b97b1bddff6a7d33fda1a4fa9e3e38dcbad38869",
+    "f32_lo":
+        "ffd6656fd3ec8a814ed30d7ffec5bc43f4ab771f8a6fcfe74e19955761304889",
+    "f32_bf16":
+        "a485961e33a87b4ceb18423adc5b7af20c65c25847dc70b617ebbe742288d26c",
+    "f64": "062ac3183b387f989598c48c391bece9293e87d2096b536cef8592684c6be8f8"}
+
+
+def _b4_digest(cuda, case):
+    import hashlib
+
+    h = hashlib.sha256()
+    for shape in ("empty_rows", "long_rows", "coarse72", "ragged"):
+        A, u, lo, _ = _b4_case(case, shape, cuda)
+        for lanes in (1, 2, 4, 8, 16, 32):
+            h.update(_b4_entry(case, A, u, lo, lanes).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("case", ["f32", "f32_lo", "f32_bf16", "f64"])
+def test_b4_instantiations_keep_their_bits(cuda, case):
+    assert _b4_digest(cuda, case) == B4_BITS[case]
+
+
+def test_b4_float64_and_absolute_launches_against_scipy(cuda, beam8_mesh):
+    """The scale-8 beam's fine operator in float64 on the card
+    (``BellSystem.matrix64`` of a float32 build) against the host BSR:
+    K u and |K| |u| by B4, the residual oracle's residual and floor
+    against ``BellSystem.matvec64`` and ``residual_floor64``."""
+    from topopteval_tpu_torch.fem.bell import build_bell_multigrid
+    from topopteval_tpu_torch.fem.bc import free_mask_from_bcs
+    from topopteval_tpu_torch.ops import bell
+    p = tt.cantilever_beam(beam8_mesh, dtype=torch.float32, device=cuda)
+    system, _, _ = build_bell_multigrid(
+        beam8_mesh, p.lam, p.mu, free_mask=free_mask_from_bcs(p.n_dofs,
+                                                              p.bcs),
+        dtype=torch.float32, device=cuda)
+    A64 = system.matrix64
+    assert A64.vals.dtype == torch.float64 and A64.cols is system.matrix.A.cols
+    K, _ = system._host_csr64()
+    Np = system.matrix.n_rows_p
+    rng = np.random.default_rng(21)
+    u = rng.standard_normal((3, Np))
+    u_dev = torch.as_tensor(u, device=cuda)
+    before = bell.LAUNCHES["bell_matvec"]
+    got = bell.bell_matvec(u_dev, A64).cpu().numpy()
+    got_abs = bell.bell_matvec(u_dev, A64, absolute=True).cpu().numpy()
+    assert bell.LAUNCHES["bell_matvec"] == before + 2
+    for out, mat, vec in ((got, K, u), (got_abs, abs(K), np.abs(u))):
+        want = (mat @ vec.T.reshape(-1)).reshape(Np, 3).T
+        assert np.abs(out - want).max() <= 1e-12 * np.abs(want).max()
+    dev = system.device_residual()
+    x = rng.standard_normal(3 * Np)
+    f = rng.standard_normal(3 * Np) * np.abs(system.matvec64(x)).max()
+    want = f - system.matvec64(x)
+    r, rn = dev.residual64(torch.as_tensor(f, device=cuda),
+                           torch.as_tensor(x, device=cuda))
+    assert np.linalg.norm(r.cpu().numpy() - want) \
+        <= 1e-14 * np.linalg.norm(want)
+    floor = system.residual_floor64(x)
+    assert abs(dev.residual_floor64(torch.as_tensor(x, device=cuda))
+               - floor) <= 1e-12 * floor
+
+
+def test_block_ell_refinement_runs_its_residuals_on_the_card(
+        cuda, no_mg_disk_cache):
+    """A float32 block-ELL solve on the card evaluates its residuals
+    there, one a pass, as many passes as the same solve on the CPU (the
+    host twin), at the same energy."""
+    mesh = tt.generate_grid_tet(12, 4, 4, (0, 0, 0), (12.0, 4.0, 4.0))
+    mesh.structured_info = None
+    out = {}
+    for device in ("cpu", "cuda"):
+        problem = tt.cantilever_beam(mesh, dtype=torch.float32,
+                                     device=device)
+        out[device] = tt.solve_system(problem, MG_CFG)
+    on_card, host = out["cuda"], out["cpu"]
+    assert on_card.converged and host.converged
+    assert host.device_residuals == 0
+    assert on_card.device_residuals == on_card.refinement_passes > 0
+    assert on_card.refinement_passes == host.refinement_passes
+    assert on_card.timings["refine_host_matvec_seconds"] > 0.0
+    assert abs(on_card.energy - host.energy) <= 1e-9 * host.energy

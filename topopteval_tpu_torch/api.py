@@ -341,6 +341,8 @@ class SolveResult:
     timings: Optional[dict] = None        # per-phase seconds
     refinement_passes: int = 0            # inner solves of the fp32 route
     graph_iterations: int = 0             # of iterations, CUDA graph replays
+    device_residuals: int = 0             # refinement residuals and floors
+                                          # evaluated on the card
 
     # tuple-unpacking parity with the reference's 5-tuple return
     def __iter__(self):
@@ -562,12 +564,23 @@ class _HostRefineSystem:
         return y
 
 
+def _residual64(system, f64, x64):
+    """The refinement's true residual f - A x and its norm: the system's
+    own ``residual64`` where it has one (float64 tensors on the card),
+    else from its exact float64 host ``matvec64``."""
+    own = getattr(system, "residual64", None)
+    if own is not None:
+        return own(f64, x64)
+    r64 = f64 - system.matvec64(x64)
+    return r64, float(np.linalg.norm(r64))
+
+
 def _refined_generic(system, inner, f64, tol, maxiter, device, x0_64=None,
                      record_history=False, max_passes=6,
                      dtype=torch.float32):
     """Mixed-precision iterative refinement around an fp32 inner solve.
 
-    Each pass evaluates the TRUE residual with the exact fp64 host matvec,
+    Each pass evaluates the TRUE residual in float64 (:func:`_residual64`),
     rescales it to unit norm and calls
     ``inner(rhs_dev, iters_left, tol_inner) -> (x_dev, niter, history)``
     for the correction.  The inner tolerance aims just below what would
@@ -580,13 +593,20 @@ def _refined_generic(system, inner, f64, tol, maxiter, device, x0_64=None,
     the operator applied to its iterate (``system.residual_floor64``),
     about the least a float64 iterate reaches: on a slender SIMP part
     under its own weight that floor lies above the tolerance.
+    The vectors (``f64``, ``x0_64``, the returned ``x64``) are float64
+    NumPy arrays, or float64 tensors on the system's device where its
+    residual runs there: the iterate and its corrections then stay on the
+    device.
     Returns (x64, total_iters, true_rnorm, converged, history, passes),
     ``passes`` being the number of inner solves.
     """
-    rn0 = float(np.linalg.norm(f64))
+    on_device = isinstance(f64, torch.Tensor)
+    rn0 = _norm(f64) if on_device else float(np.linalg.norm(f64))
     eps = tol + tol * rn0
-    x64 = np.zeros_like(f64) if x0_64 is None else np.asarray(
-        x0_64, np.float64)
+    if x0_64 is not None:
+        x64 = x0_64 if on_device else np.asarray(x0_64, np.float64)
+    else:
+        x64 = torch.zeros_like(f64) if on_device else np.zeros_like(f64)
     total = 0
     passes = 0
     hists = []
@@ -594,9 +614,8 @@ def _refined_generic(system, inner, f64, tol, maxiter, device, x0_64=None,
     converged = False
     for p in itertools.count():
         with span("refine/residual"):
-            r64 = f64 if (p == 0 and x0_64 is None) \
-                else f64 - system.matvec64(x64)
-            rn = float(np.linalg.norm(r64))
+            r64, rn = ((f64, rn0) if (p == 0 and x0_64 is None)
+                       else _residual64(system, f64, x64))
         if rn <= eps:
             converged = True
             break
@@ -620,7 +639,8 @@ def _refined_generic(system, inner, f64, tol, maxiter, device, x0_64=None,
         if n_it == 0:
             break
         with span("refine/transfer"):
-            x64 = x64 + s * x_dev.double().cpu().numpy()
+            dx = x_dev.double()
+            x64 = x64 + s * (dx if on_device else dx.cpu().numpy())
         total += n_it
         if record_history and hist is not None:
             h = np.asarray(hist)[: n_it + 1] * s
@@ -800,7 +820,12 @@ def _solve_system_sharded(problem: Problem, config: SolverConfig, devices,
 
 
 def _record_refine(timer: PhaseTimer, system) -> None:
-    """The refinement's host seconds (its twin's build and matvecs)."""
+    """The refinement's residual seconds, cumulative over the system's
+    solves: ``refine_host_build_seconds`` its oracle's set-up,
+    ``refine_host_matvec_seconds`` its residual and floor evaluations.
+    On the host twins these are host seconds; on the card
+    (:class:`.fem.bell.BellResidual64`) the wall seconds of the
+    evaluations, the norm's read-back included."""
     for name in ("build_seconds", "matvec_seconds"):
         timer.records[f"refine_host_{name}"] = PhaseRecord(
             f"refine_host_{name}", getattr(system, name))
@@ -871,6 +896,7 @@ def _solve_system(problem: Problem, config: SolverConfig, x0, devices,
     u64 = None              # fp64 displacements from the refined route
     passes = 0              # inner solves of the refined route
     graph_its = 0           # iterations run as CUDA graph replays (cg)
+    device_res = 0          # the refined route's evaluations on the card
 
     def _host_direct():
         """fp64 host sparse LU with the problem's own f and BCs."""
@@ -889,8 +915,12 @@ def _solve_system(problem: Problem, config: SolverConfig, x0, devices,
             # takes this path whatever ``verbose`` says
             M = M_mg if M_mg is not None else _build_preconditioner(op, config)
             if want_refine:
-                if is_cm:                   # BellSystem.matvec64, fp64 scipy
-                    system = op
+                # on the card the block-ELL route's residuals run by B4 in
+                # float64 over the fine values' copy and the refinement's
+                # vectors stay there; elsewhere the exact float64 host twins
+                on_card = is_cm and device.type == "cuda"
+                if is_cm:
+                    system = op.device_residual() if on_card else op
                     mask64 = op.free_mask.double().cpu().numpy()
                     f64 = op.to_cm(problem.f) * mask64
                     x0_64 = (None if x0 is None
@@ -910,11 +940,24 @@ def _solve_system(problem: Problem, config: SolverConfig, x0, devices,
                     graph_its += r.graph_iters
                     return r.x, r.niter, r.history
 
-                u64, niter, rnorm, conv, history, passes = _refined_generic(
-                    system, _inner, f64, config.tolerance,
-                    config.max_iterations, device, x0_64=x0_64,
-                    record_history=config.history, dtype=dtype)
-                u = torch.as_tensor(u64, dtype=dtype, device=device)
+                f_ref, x0_ref = f64, x0_64
+                if on_card:
+                    evaluated = system.evaluations
+                    f_ref = torch.as_tensor(f64, device=device)
+                    if x0_64 is not None:
+                        x0_ref = torch.as_tensor(x0_64, device=device)
+                x_ref, niter, rnorm, conv, history, passes = \
+                    _refined_generic(
+                        system, _inner, f_ref, config.tolerance,
+                        config.max_iterations, device, x0_64=x0_ref,
+                        record_history=config.history, dtype=dtype)
+                if on_card:
+                    device_res = system.evaluations - evaluated
+                    u64 = x_ref.cpu().numpy()
+                    u = x_ref.to(dtype)
+                else:
+                    u64 = x_ref
+                    u = torch.as_tensor(u64, dtype=dtype, device=device)
                 energy64 = 0.5 * float(u64 @ f64)
                 _record_refine(timer, system)
             else:
@@ -1015,22 +1058,26 @@ def _solve_system(problem: Problem, config: SolverConfig, x0, devices,
     energy = energy64 if energy64 is not None else float(op.energy(u))
     if is_cm:
         # back to the public interleaved DOF layout for stresses and export
+        # (the working-dtype u is the float64 one rounded: one relayout)
         with timer.phase("relayout"):
-            u = torch.as_tensor(op.to_il(u.cpu().numpy()), dtype=dtype,
-                                device=device)
             if u64 is not None:
                 u64 = op.to_il(u64)
+                u = torch.as_tensor(u64, dtype=dtype, device=device)
+            else:
+                u = torch.as_tensor(op.to_il(u.cpu().numpy()), dtype=dtype,
+                                    device=device)
     return _finish_result(problem, u, energy, method, niter, rnorm, conv,
                           solve_time, history, timer,
                           dmesh=getattr(op, "dmesh", None), u64=u64,
-                          refinement_passes=passes, graph_iterations=graph_its)
+                          refinement_passes=passes, graph_iterations=graph_its,
+                          device_residuals=device_res)
 
 
 def _finish_result(problem: Problem, u, energy: float, method: str,
                    niter: int, rnorm: float, conv: bool,
                    solve_time: float, history, timer: PhaseTimer,
                    dmesh=None, u64=None, refinement_passes=0,
-                   graph_iterations=0) -> SolveResult:
+                   graph_iterations=0, device_residuals=0) -> SolveResult:
     """Post-solve tail: stress recovery + SolveResult assembly.  ``u64``
     holds the refined route's fp64-certified displacements, which the
     result keeps instead of their working-dtype copy.  ``dmesh`` is the
@@ -1062,7 +1109,7 @@ def _finish_result(problem: Problem, u, energy: float, method: str,
         method=method, iterations=niter, residual_norm=rnorm,
         converged=conv, solve_time=solve_time, history=history,
         timings=timer.as_dict(), refinement_passes=refinement_passes,
-        graph_iterations=graph_iterations)
+        graph_iterations=graph_iterations, device_residuals=device_residuals)
 
 
 # SIMP variant shares the implementation; the material was captured at

@@ -19,7 +19,9 @@
 //   stored in bf16 (the float32 V-cycle's smoother copies) and are
 //   widened to the vector type before the multiply.
 //   Instantiated for (float vectors, float values), (float, float + lo
-//   plane), (float, bf16) and (double, double).
+//   plane), (float, bf16) and (double, double), and over |values| and |u|
+//   in double (bell_matvec_f64_abs: AbsBlock, the float64 rounding floor
+//   eps64 |K| |x| of the refinement's residual).
 //
 // sell_matvec  replaces _sell_aligned_kernel (pallas_bsr.py:399, via
 //              sell_matvec_aligned :428): the scalar-weight transfers,
@@ -149,6 +151,22 @@ struct Block {
         a0 += T(widen(v[0])) * x + T(widen(v[1])) * y + T(widen(v[2])) * z;
         a1 += T(widen(v[3])) * x + T(widen(v[4])) * y + T(widen(v[5])) * z;
         a2 += T(widen(v[6])) * x + T(widen(v[7])) * y + T(widen(v[8])) * z;
+    }
+};
+
+// |v| |u|: Block's sums over the magnitudes, read from the same staged
+// values (no second |values| copy in device memory).
+template <typename V_>
+struct AbsBlock {
+    using V = V_;
+    static constexpr int NV = 9, CHUNK = 512, ILP = 1;
+    template <typename T>
+    __device__ __forceinline__ static void add(const V* v, T x, T y, T z,
+                                               T& a0, T& a1, T& a2) {
+        V w[NV];
+#pragma unroll
+        for (int k = 0; k < NV; ++k) w[k] = fabs(v[k]);
+        Block<V>::add(w, fabs(x), fabs(y), fabs(z), a0, a1, a2);
     }
 };
 
@@ -361,6 +379,16 @@ int bell_matvec_f64(const void* indptr, const void* cols, const void* vals,
     if (vals_lo != nullptr) return (int)cudaErrorInvalidValue;
     return launch<double, Block<double>>(indptr, cols, vals, nullptr, u, out,
                                          n_rows, n_cols, lanes, stream);
+}
+
+int bell_matvec_f64_abs(const void* indptr, const void* cols,
+                        const void* vals, const void* vals_lo, const void* u,
+                        void* out, int n_rows, int n_cols, int lanes,
+                        void* stream) {
+    if (vals_lo != nullptr) return (int)cudaErrorInvalidValue;
+    return launch<double, AbsBlock<double>>(indptr, cols, vals, nullptr, u,
+                                            out, n_rows, n_cols, lanes,
+                                            stream);
 }
 
 int sell_matvec_f32(const void* indptr, const void* cols, const void* w,

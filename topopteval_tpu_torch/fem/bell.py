@@ -20,9 +20,12 @@ materials that vary inside a hex.
   pass per material, so a SIMP density swap on the same mesh and BCs
   reuses the skeleton (in-process RAM cache; disk cache opt-in).
 - In float32 the system operator stores the float64 values as an fp32
-  hi/lo pair (``BellMatrix.vals_lo``), the V-cycle copies hold bf16
-  values, and ``BellSystem.matvec64`` (the exact fp64 scipy twin kept at
-  build time) certifies residuals for mixed-precision refinement.
+  hi/lo pair (``BellMatrix.vals_lo``) and the V-cycle copies hold bf16
+  values.  The fine values also stay in float64 on the device
+  (``BellSystem.matrix64``): on the card :class:`BellResidual64` applies
+  them by B4 to certify the mixed-precision refinement's residuals; on
+  the CPU and on the sharded route ``BellSystem.matvec64`` (the exact fp64
+  scipy twin kept at build time) does.
 
 The build runs on the host and uploads finished tensors.  Its hot loops
 (element gradients, the block values of a material, the scalar-P RAP on
@@ -50,13 +53,14 @@ from ..io.native import (blocks_from_g_native, bsr_rap_scalar_native,
                          element_gradients_native, host_ftz,
                          native_available)
 from ..mesh import Mesh, resolve_device
+from ..ops import bell as ops_bell
 from ..ops.bell import (BlockCSR, bell_matvec, csr_arrays, pad_rows,
                         sell_matvec)
 from ..utils.profiling import span, steps
 from .multigrid import MultigridPreconditioner
 
 _SKEL_VERSION = 2     # bump to invalidate on-disk skeleton caches
-_HIER_VERSION = 2     # bump to invalidate on-disk hierarchy caches
+_HIER_VERSION = 3     # bump to invalidate on-disk hierarchy caches
 #: tag of the port's hierarchy files (the JAX package's have another format)
 _HIER_FORMAT = "topopteval_tpu_torch.bell"
 
@@ -192,9 +196,14 @@ class BellSystem:
     capturable = True
 
     def __init__(self, matrix: BellMatrix, perm: np.ndarray, n_nodes: int,
-                 dtype, host_bsr: dict,
+                 dtype, host_bsr: dict, matrix64: BlockCSR,
                  fine_transfer: Optional[dict] = None):
         self.matrix = matrix
+        #: the fine operator's float64 values on the device, unmasked (in
+        #: float64 ``matrix.A`` itself): the refinement's residual on the
+        #: card (:class:`BellResidual64`)
+        self.matrix64 = matrix64
+        self._residual64 = None
         self.perm = np.asarray(perm, np.int64)        # new pos -> old node
         self.n_nodes = int(n_nodes)
         self.dtype = dtype
@@ -283,6 +292,13 @@ class BellSystem:
         self.matvec_seconds += time.perf_counter() - t0
         return floor
 
+    def device_residual(self) -> "BellResidual64":
+        """The float64 residual oracle over ``matrix64`` (one a system,
+        so its seconds accumulate as ``matvec_seconds`` do)."""
+        if self._residual64 is None:
+            self._residual64 = BellResidual64(self)
+        return self._residual64
+
     # layout converters (host)
     def to_cm(self, vec_il: np.ndarray) -> np.ndarray:
         v = np.zeros((3, self.matrix.n_rows_p))
@@ -296,6 +312,56 @@ class BellSystem:
         out = np.empty_like(u2)
         out[self.perm] = u2
         return out.reshape(-1)
+
+
+class BellResidual64:
+    """The refinement's float64 residual oracle on the system's device:
+    B4's float64 launch over ``BellSystem.matrix64`` on flat
+    component-major float64 tensors, the algebra of ``BellSystem.matvec64``
+    and ``residual_floor64`` in the device's summation order.  Each
+    evaluation reads one norm back to the host.
+
+    The launches go through ``ops.bell.bell_matvec``, not this module's
+    ``bell_matvec`` name that the solve's operators call, so that a wrapper
+    of the latter sees the iterations' launches alone."""
+
+    def __init__(self, system: BellSystem):
+        t0 = time.perf_counter()
+        self.A = system.matrix64
+        self.mask = system.free_mask.double()
+        #: wall seconds: the set-up, and the residual and floor
+        #: evaluations with their norms' read-back (cumulative)
+        self.build_seconds = time.perf_counter() - t0
+        self.matvec_seconds = 0.0
+        #: residual and floor evaluations (cumulative)
+        self.evaluations = 0
+
+    def _apply(self, x64: torch.Tensor, absolute: bool = False):
+        m = self.mask
+        return m * ops_bell.bell_matvec((m * x64).reshape(3, -1), self.A,
+                                        absolute=absolute).reshape(-1)
+
+    def _done(self, t0: float) -> None:
+        self.matvec_seconds += time.perf_counter() - t0
+        self.evaluations += 1
+
+    def residual64(self, f64: torch.Tensor, x64: torch.Tensor):
+        """(r, ||r||) for r = f - (m K (m x) + (1 - m) x)."""
+        t0 = time.perf_counter()
+        r = f64 - (self._apply(x64) + (1.0 - self.mask) * x64)
+        rn = float(torch.linalg.vector_norm(r))
+        self._done(t0)
+        return r, rn
+
+    def residual_floor64(self, x64: torch.Tensor) -> float:
+        """eps64 * ||m * (|K| (m * |x|))|| (``BellSystem.residual_floor64``)
+        by one launch over |values| and |x|."""
+        t0 = time.perf_counter()
+        eps = float(np.finfo(np.float64).eps)
+        floor = eps * float(torch.linalg.vector_norm(
+            self._apply(x64, absolute=True)))
+        self._done(t0)
+        return floor
 
 
 # ---------------------------------------------------------------------------
@@ -561,8 +627,11 @@ def _from_host(host: dict, dtype, device) -> Tuple[BellSystem, BellMG]:
     Np.append(host["coarse_inv"].shape[0] // 3)
     levels = []
     for i in range(n_levels):
-        A = BlockCSR.from_numpy(host[f"L{i}_indptr"], host[f"L{i}_cols"],
-                                host[f"L{i}_vals"], Np[i], dtype, device)
+        if i == 0:
+            A, vals_lo, A64 = _fine_operator(host, Np[0], dtype, device)
+        else:
+            A = BlockCSR.from_numpy(host[f"L{i}_indptr"], host[f"L{i}_cols"],
+                                    host[f"L{i}_vals"], Np[i], dtype, device)
         op = BellMatrix(A, t(host[f"L{i}_mask"]), Np[i])
         transfer = BellTransfer(
             BlockCSR.from_numpy(host[f"L{i}_p_indptr"], host[f"L{i}_p_cols"],
@@ -574,9 +643,7 @@ def _from_host(host: dict, dtype, device) -> Tuple[BellSystem, BellMG]:
                                 None if np.isnan(lam) else lam))
     # the system operator keeps full solve precision (and the lo plane);
     # only the V-cycle copies narrow
-    fine = levels[0].op
-    if "fine_vals_lo" in host:
-        fine = dataclasses.replace(fine, vals_lo=t(host["fine_vals_lo"]))
+    fine = dataclasses.replace(levels[0].op, vals_lo=vals_lo)
     levels = _narrow_smoother_levels(levels, _smoother_dtype(dtype))
     mg = BellMG(tuple(levels), t(host["coarse_inv"]), nu=int(host["nu"]),
                 smoother=str(host["smoother"]))
@@ -584,8 +651,57 @@ def _from_host(host: dict, dtype, device) -> Tuple[BellSystem, BellMG]:
                         {"indptr": host["hb_indptr"],
                          "indices": host["hb_indices"],
                          "data": host["hb_data"]},
-                        _fine_transfer(host))
+                        A64, _fine_transfer(host))
     return system, mg
+
+
+def _fine_operator(host: dict, n_rows_p: int, dtype, device):
+    """``(A, vals_lo, A64)`` of the fine level on ``device``: the solve's
+    matrix, its float32 remainder plane (None in float64) and the float64
+    matrix of the refinement's residual (``A`` itself in float64).
+
+    A float32 build sends its float64 values up once (``hb_data``, laid
+    out as ``L0_cols``) and splits them here, hi = f32(v) and
+    lo = f32(v - hi): the host split's bits in the upload's bytes.  Only
+    a JAX package's hierarchy (:func:`bell_from_numpy`) brings its own
+    planes (``L0_vals`` and ``fine_vals_lo``): it keeps them, for parity
+    with that package, and the float64 copy takes the host BSR's own
+    structure.  (Cache files written with the planes carry an older
+    ``_HIER_VERSION`` and are rebuilt.)"""
+    def csr(indptr, cols, vals, dt):
+        return BlockCSR.from_numpy(indptr, cols, vals, n_rows_p, dt, device)
+
+    indptr, cols = host["L0_indptr"], host["L0_cols"]
+    if dtype == torch.float64:
+        A = csr(indptr, cols, host["L0_vals"], dtype)
+        return A, None, A
+    if "L0_vals" not in host:
+        A64 = csr(indptr, cols, host["hb_data"], torch.float64)
+        hi, lo = _split_hi_lo(A64.vals)
+        return A64.with_vals(hi), lo, A64
+    lo = host.get("fine_vals_lo")
+    A64 = csr(_pad_indptr(host["hb_indptr"], n_rows_p), host["hb_indices"],
+              host["hb_data"], torch.float64)
+    if lo is not None:
+        lo = torch.as_tensor(np.ascontiguousarray(lo), dtype=dtype,
+                             device=device)
+    return csr(indptr, cols, host["L0_vals"], dtype), lo, A64
+
+
+#: values a step of :func:`_split_hi_lo` (bounds its float64 temporary)
+_SPLIT_CHUNK = 1 << 24
+
+
+def _split_hi_lo(v64: torch.Tensor):
+    """(hi, lo) float32 planes of float64 values: hi = f32(v) and
+    lo = f32(v - hi), the difference exact in float64."""
+    hi = v64.float()
+    lo = torch.empty_like(hi)
+    flat, hi_f, lo_f = v64.view(-1), hi.view(-1), lo.view(-1)
+    for a in range(0, flat.numel(), _SPLIT_CHUNK):
+        b = a + _SPLIT_CHUNK
+        lo_f[a:b] = flat[a:b] - hi_f[a:b].double()
+    return hi, lo
 
 
 #: the host-array keys of the fine transfer (the JAX package's names)
@@ -1065,12 +1181,10 @@ def _build_bell_values(skel: dict, lam, mu, dtype, device, step: steps
             "L0_indptr": _pad_indptr(skel["bsr_indptr"], n_rows_p),
             "L0_cols": cols_d}
     host.update({kk: skel[kk] for kk in _FT_KEYS if kk in skel})
-    if np_dt == np.float32:
-        hi = blocks.astype(np.float32)
-        host["L0_vals"] = hi
-        host["fine_vals_lo"] = (blocks - hi).astype(np.float32)
-    else:
+    if np_dt == np.float64:
         host["L0_vals"] = blocks
+    # float32: the fine values go up once in float64, as ``hb_data``
+    # below, and are split on the device (:func:`_fine_operator`)
     host["L0_mask"] = _mask_cm_flat(mask_p, n_rows_p, dtype)
 
     diag = np.zeros((N, 3, 3))
@@ -1191,6 +1305,7 @@ def _device_bytes(system: BellSystem, mg: BellMG) -> int:
             add(t)
 
     add_csr(system.matrix.A)
+    add_csr(system.matrix64)
     add(system.matrix.vals_lo)
     add(system.matrix.free_mask)
     add(mg.coarse_inv)
@@ -1278,11 +1393,7 @@ def _build_legacy(mesh, lam, mu, free_mask, dtype, max_coarse_dofs, order,
             "L0_mask": _mask_cm_flat(mask_p, n_rows_p, dtype),
             "hb_indptr": A_bsr.indptr, "hb_indices": A_bsr.indices,
             "hb_data": A_bsr.data.reshape(-1, 9)}
-    if np_dt == np.float32:
-        hi = vals.astype(np.float32)
-        host["L0_vals"] = hi
-        host["fine_vals_lo"] = (vals - hi).astype(np.float32)
-    else:
+    if np_dt == np.float64:
         host["L0_vals"] = vals
     step("fine_binv")
     diag = _diag_blocks(rows, cols, blocks, N)

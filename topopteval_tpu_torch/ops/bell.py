@@ -13,7 +13,9 @@ carried over: at 1.23M tets it pads rows of at most 15 blocks to 88 slots.
 - ``bell_matvec(u_cm, A, vals_lo=None)``: out[a, n] = sum_j sum_b
   A.vals[j, 3a+b] u[b, A.cols[j]] over the blocks j of row n, with an
   optional second value plane ``vals_lo`` summed separately and added once
-  per output (the float32 hi/lo split of float64 values);
+  per output (the float32 hi/lo split of float64 values), or with
+  ``absolute`` the same sums over |A.vals| and |u| (float64 only: the
+  refinement's rounding floor eps64 |K| |x|);
 - ``sell_matvec(u_cm, T)``: out[a, n] = sum_j T.vals[j] u[a, T.cols[j]],
   the prolongation and restriction.
 
@@ -168,17 +170,20 @@ def pack_csr(rows, cols, data, n_rows: int, n_cols: int, dtype=None,
 _SUFFIX = {(torch.float32, torch.float32): "f32",
            (torch.float32, torch.bfloat16): "f32_bf16",
            (torch.float64, torch.float64): "f64"}
+#: bell_matvec's entry point over |values| and |u|
+_ABS_SUFFIX = "f64_abs"
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built ``csrc/bell_apply.cu`` with its C signatures declared."""
     lib = _build.load("bell_apply")
-    for suffix in set(_SUFFIX.values()):
+    for suffix in (*set(_SUFFIX.values()), _ABS_SUFFIX):
         fn = getattr(lib, f"bell_matvec_{suffix}")
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for suffix in set(_SUFFIX.values()):
         fn = getattr(lib, f"sell_matvec_{suffix}")
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
@@ -242,12 +247,18 @@ def _launch(name: str, suffix: str, args, A: BlockCSR, u_cm: torch.Tensor,
 
 
 def bell_matvec(u_cm: torch.Tensor, A: BlockCSR,
-                vals_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+                vals_lo: Optional[torch.Tensor] = None,
+                absolute: bool = False) -> torch.Tensor:
     """3x3-block SpMV on component-major vectors: [3, n_cols] ->
-    [3, n_rows] (see the module docstring)."""
+    [3, n_rows] (see the module docstring); ``absolute``: |A| |u|."""
     suffix = _check("bell_matvec", u_cm, A, True, vals_lo)
+    if absolute:
+        if suffix != "f64" or vals_lo is not None:
+            raise TypeError("bell_matvec: |A| |u| is taken with float64 "
+                            "values and vectors, no lo plane")
+        suffix = _ABS_SUFFIX
     if u_cm.device.type == "cpu":
-        return bell_matvec_reference(u_cm, A, vals_lo)
+        return bell_matvec_reference(u_cm, A, vals_lo, absolute)
     if u_cm.device.type != "cuda":
         raise ValueError(f"bell_matvec: no kernel for device {u_cm.device}")
     args = (A.indptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
@@ -283,8 +294,10 @@ def _block_terms(u_cm: torch.Tensor, A: BlockCSR, vals: torch.Tensor):
 
 
 def bell_matvec_reference(u_cm: torch.Tensor, A: BlockCSR,
-                          vals_lo: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          vals_lo: Optional[torch.Tensor] = None,
+                          absolute: bool = False) -> torch.Tensor:
+    if absolute:
+        u_cm, A = u_cm.abs(), A.with_vals(A.vals.abs())
     rows = A.rows()
     out = u_cm.new_zeros((3, A.n_rows)).index_add_(
         1, rows, _block_terms(u_cm, A, A.vals))
